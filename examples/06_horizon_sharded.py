@@ -4,7 +4,7 @@ Two engines for LONG horizons (SURVEY.md §2.5 SP/PP rows):
 
  1. riccati_associative_sharded — backward Riccati with the horizon sharded
     across devices (Blelloch two-level suffix scan; one all_gather of block
-    totals over ICI per solve).
+    totals per solve).
  2. rollout_lti_pipelined — batched forward rollouts pipelined through
     horizon stage groups (microbatches flow device-to-device via ppermute).
 

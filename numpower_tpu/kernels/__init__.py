@@ -1,9 +1,4 @@
-"""Pallas TPU kernels for hot paths (SURVEY.md §7: "replace hot paths with
-Pallas blocked kernels — the speed-of-light requirement")."""
+"""Hand-written Pallas kernels for NVIDIA GPUs (Triton route).
 
-from numpower_tpu.kernels.boxqp_fista import (  # noqa: F401
-    fista_boxqp_pallas, solve_mpc_boxqp_pallas,
-)
-from numpower_tpu.kernels.cholesky import (  # noqa: F401
-    cholesky_batched, psd_solve_batched,
-)
+Each kernel has an XLA path beside it; utils/platform.route chooses between
+them. A kernel stays only while it beats that XLA path on the card."""

@@ -12,7 +12,7 @@ dynamics AND hard control box constraints, via the ALTRO-style scheme:
       (mu where c_i > 0 or lam_i > 0, else 0)
       dual update: lam <- max(0, lam + mu c);  mu <- beta * mu
 
-TPU-native structure (same discipline as models/ilqr.py):
+Structure (same discipline as models/ilqr.py):
   - the ENTIRE solve — outer AL loop, inner iLQR loops, line searches — is
     one jitted program: lax.scan over AL iterations, scan over iLQR
     iterations, vmapped parallel line search; static trip counts throughout
@@ -164,145 +164,7 @@ def al_ilqr_solve(
                         max_violation=viol, costs=costs)
 
 
-def al_ilqr_solve_batched(f, x0s, *args, backend: str = "vmap",
-                          **kwargs) -> ALILQRResult:
-    """Batched AL-iLQR over scenario initial states x0s (N, n).
-
-    backend="vmap": per-scenario vmapped al_ilqr_solve (portable default).
-    backend="fused": the inner iLQR backward pass runs as ONE Pallas kernel
-    over the whole batch (kernels/ilqr_backward.py with the per-scenario/
-    timestep diagonal luu stream carrying the AL active-set penalty).
-    TPU-only; same numerics per backward pass, line-search branch selection
-    may differ in marginal scenarios (see models/ilqr.ilqr_solve_batched).
-    """
-    if backend == "vmap":
-        kwargs.pop("forward", None)  # fused-backend-only knob
-        return jax.vmap(lambda x0: al_ilqr_solve(f, x0, *args, **kwargs))(x0s)
-    return _al_ilqr_solve_batched_fused(f, x0s, *args, **kwargs)
-
-
-def _al_ilqr_solve_batched_fused(
-    f, x0s, Q, R, QF, x_goal, horizon: int, u_lo, u_hi,
-    al_iters: int = 6, ilqr_iters: int = 8, mu0: float = 1.0,
-    mu_scale: float = 8.0, reg: float = 1e-3, use_fd: bool = False,
-    fd_eps: float = 1e-4, us_init=None,
-    alphas: Tuple[float, ...] = (1.0, 0.6, 0.3, 0.1, 0.03, 0.01),
-    interpret: bool = False, forward: str = "pallas",
-) -> ALILQRResult:
-    """forward="pallas" (default) runs the line-search rollouts through
-    the whole-T fused kernel (kernels/ilqr_forward.py — the measured
-    per-iteration cost driver, scripts/ilqr_breakdown.py); the AL
-    penalty is added to the kernel's quadratic costs batch-parallel
-    outside (one fused reduction over the candidate controls).
-    "xla" restores the vmapped scan."""
-    from numpower_tpu.kernels.ilqr_backward import ilqr_backward_fused
-
-    N = x0s.shape[0]
-    m = R.shape[0]
-    T = horizon
-    dt = x0s.dtype
-    if us_init is None:
-        us = jnp.zeros((N, T, m), dtype=dt)
-    else:
-        us = jnp.broadcast_to(us_init, (N, T, m)).astype(dt)
-    us = jnp.clip(us, u_lo, u_hi)
-    roll = jax.vmap(lambda x0, u: rollout_nonlinear(f, x0, u))
-    true_cost_fn = jax.vmap(lambda x, u: _total_cost(x, u, Q, R, QF, x_goal))
-    alphas_arr = jnp.asarray(alphas, dtype=dt)
-
-    def al_terms_b(us, lam_hi, lam_lo, mu):
-        # batched _al_terms: pen (N,), lu_pen (N,T,m), luu_pen (N,T,m)
-        c_hi = us - u_hi
-        c_lo = u_lo - us
-        act_hi = ((c_hi > 0) | (lam_hi > 0)).astype(dt) * mu
-        act_lo = ((c_lo > 0) | (lam_lo > 0)).astype(dt) * mu
-        pen = jnp.sum(lam_hi * c_hi + 0.5 * act_hi * c_hi * c_hi, axis=(1, 2))
-        pen += jnp.sum(lam_lo * c_lo + 0.5 * act_lo * c_lo * c_lo, axis=(1, 2))
-        lu_pen = (lam_hi + act_hi * c_hi) - (lam_lo + act_lo * c_lo)
-        luu_pen = act_hi + act_lo
-        return pen, lu_pen, luu_pen
-
-    def aug_cost(xs, us, lam_hi, lam_lo, mu):
-        pen, _, _ = al_terms_b(us, lam_hi, lam_lo, mu)
-        return true_cost_fn(xs, us) + pen
-
-    def inner_it(carry, _):
-        xs, us, cost, lam_hi, lam_lo, mu = carry
-        As, Bs = jax.vmap(
-            lambda x, u: linearize_trajectory(f, x, u, use_fd=use_fd, eps=fd_eps)
-        )(xs, us)
-        _, lu_pen, luu_pen = al_terms_b(us, lam_hi, lam_lo, mu)
-        lxs = 2.0 * (xs[:, :T] - x_goal) @ Q.T
-        lus = 2.0 * us @ R.T + lu_pen
-        lxT = 2.0 * (xs[:, T] - x_goal) @ QF.T
-        ks, Ks = ilqr_backward_fused(
-            As, Bs, lxs, lus, 2.0 * Q, 2.0 * R, lxT, 2.0 * QF,
-            reg=reg, interpret=interpret, luu_diags=luu_pen,
-        )
-
-        if forward == "pallas":
-            from numpower_tpu.kernels.ilqr_forward import (
-                ilqr_forward_pallas,
-            )
-
-            A_n = alphas_arr.shape[0]
-            n = x0s.shape[1]
-            us_l, xs_l, costs_q = ilqr_forward_pallas(
-                f, Q, R, QF, x_goal, alphas_arr, x0s,
-                xs[:, :T].transpose(1, 2, 0),
-                us.transpose(1, 2, 0),
-                ks.transpose(1, 2, 0),
-                Ks.transpose(1, 2, 3, 0).reshape(T, m * n, N),
-                n_alphas=A_n, interpret=interpret)
-            us_all = us_l.transpose(0, 3, 1, 2)     # (A, N, T, m)
-            xs_all = xs_l.transpose(0, 3, 1, 2)     # (A, N, T+1, n)
-            pen_a = jax.vmap(
-                lambda u: al_terms_b(u, lam_hi, lam_lo, mu)[0])(us_all)
-            costs_a = costs_q + pen_a
-        else:
-            def try_alpha(alpha):
-                us_a, xs_a = jax.vmap(
-                    lambda x0, xs_n, us_n, k_n, K_n: _forward_pass(
-                        f, x0, xs_n, us_n, k_n, K_n, alpha
-                    )
-                )(x0s, xs, us, ks, Ks)
-                return aug_cost(xs_a, us_a, lam_hi, lam_lo, mu), us_a, xs_a
-
-            costs_a, us_all, xs_all = jax.vmap(try_alpha)(alphas_arr)  # (A, N, ...)
-        best = jnp.argmin(costs_a, axis=0)  # (N,)
-        pick = lambda arr: jnp.take_along_axis(
-            arr, best[None, :].reshape((1, N) + (1,) * (arr.ndim - 2)), axis=0
-        )[0]
-        new_cost_cand = jnp.take_along_axis(costs_a, best[None, :], axis=0)[0]
-        improved = new_cost_cand < cost
-        new_xs = jnp.where(improved[:, None, None], pick(xs_all), xs)
-        new_us = jnp.where(improved[:, None, None], pick(us_all), us)
-        new_cost = jnp.where(improved, new_cost_cand, cost)
-        return (new_xs, new_us, new_cost, lam_hi, lam_lo, mu), None
-
-    def outer(carry, _):
-        xs, us, lam_hi, lam_lo, mu = carry
-        cost0 = aug_cost(xs, us, lam_hi, lam_lo, mu)
-        (xs, us, _, _, _, _), _ = lax.scan(
-            inner_it, (xs, us, cost0, lam_hi, lam_lo, mu), None,
-            length=ilqr_iters)
-        c_hi = us - u_hi
-        c_lo = u_lo - us
-        lam_hi = jnp.maximum(0.0, lam_hi + mu * c_hi)
-        lam_lo = jnp.maximum(0.0, lam_lo + mu * c_lo)
-        mu = mu * mu_scale
-        return (xs, us, lam_hi, lam_lo, mu), true_cost_fn(xs, us)
-
-    xs0 = roll(x0s, us)
-    lam0 = jnp.zeros((N, T, m), dtype=dt)
-    carry0 = (xs0, us, lam0, lam0, jnp.asarray(mu0, dt))
-    (xs_f, us_f, _, _, _), costs = lax.scan(outer, carry0, None,
-                                            length=al_iters)
-    viol = jnp.maximum(
-        jnp.max(us_f - u_hi, axis=(1, 2)), jnp.max(u_lo - us_f, axis=(1, 2)))
-    viol = jnp.maximum(viol, 0.0)
-    us_proj = jnp.clip(us_f, u_lo, u_hi)
-    xs_proj = roll(x0s, us_proj)
-    cost_f = true_cost_fn(xs_proj, us_proj)
-    return ALILQRResult(us=us_proj, xs=xs_proj, cost=cost_f,
-                        max_violation=viol, costs=costs.T)
+def al_ilqr_solve_batched(f, x0s, *args, **kwargs) -> ALILQRResult:
+    """Batched AL-iLQR over scenario initial states x0s (N, n):
+    al_ilqr_solve vmapped over the batch."""
+    return jax.vmap(lambda x0: al_ilqr_solve(f, x0, *args, **kwargs))(x0s)

@@ -2,7 +2,7 @@
 
 BASELINE config #3: cartpole iLQR with finite-difference Jacobians
 (exercises elementwise ops, reductions, indexing — the reference user's
-toolkit). TPU-native structure:
+toolkit). Structure:
 
  - linearization: one vmap over the horizon (exact jacfwd or central FD)
  - backward pass: lax.scan with Levenberg-style regularization on Q_uu
@@ -87,12 +87,10 @@ def _backward_pass(As, Bs, xs, us, Q, R, QF, x_goal, reg,
         return (Vx_new, Vxx_new), (k, K)
 
     xs_t = xs[:-1]
-    # unroll is caller-controlled: it wins ONLY on single-scenario solves
+    # unroll is caller-controlled: it is meant for single-scenario solves
     # where per-step ops are tiny and the rolled scan is loop-overhead-
-    # bound (3.18 -> 2.33 ms on the cartpole config); under vmap the
-    # per-step ops carry the batch and unrolling REGRESSES (fused
-    # AL-iLQR measured 1.8 -> 6.4 ms with unrolled forward passes, v5e
-    # 2026-08-21 interleaved A/B) — batched callers keep the default 1
+    # bound; under vmap the per-step ops carry the batch, so batched
+    # callers keep the default 1
     _, (ks_rev, Ks_rev) = lax.scan(
         step, (VX_T, VXX_T),
         (As[::-1], Bs[::-1], xs_t[::-1], us[::-1],
@@ -137,10 +135,9 @@ def ilqr_solve(
 ) -> ILQRResult:
     """Full iLQR solve, jit-compatible. vmap over x0 for batched scenarios.
 
-    unroll_scans=True is the SINGLE-SCENARIO latency opt-in (27% at
-    h<=64, BASELINE config #3) and REGRESSES batched runs (fused AL-iLQR
-    measured 1.8 -> 6.4 ms) — never set it under vmap. Default False so
-    the advertised vmap-over-x0 pattern is always safe (advisor r3)."""
+    unroll_scans=True is the SINGLE-SCENARIO latency opt-in (h <= 64,
+    BASELINE config #3); do not set it under vmap. Default False so the
+    advertised vmap-over-x0 pattern is always safe."""
     m = R.shape[0]
     unroll = horizon if (unroll_scans and horizon <= 64) else 1
     us = (
@@ -175,109 +172,11 @@ def ilqr_solve(
     return ILQRResult(us=us_f, xs=xs_f, cost=cost_f, costs=costs)
 
 
-def ilqr_solve_batched(f, x0s, Q, R, QF, x_goal, horizon, backend: str = "vmap",
-                       **kwargs):
-    """Batched iLQR over scenarios.
-
-    backend="vmap": per-scenario vmapped ilqr_solve (portable default).
-    backend="fused": the backward pass runs as ONE Pallas kernel over the
-    whole batch (kernels/ilqr_backward.py — batch-on-lanes, per-timestep
-    linearizations streamed with automatic double buffering); linearization
-    and line search stay vmapped. TPU-only (use interpret kernels on CPU via
-    tests, not production). Measured 5.9x end-to-end on v5e at N=256, h=50.
-
-    The two backends are numerically equivalent per backward pass (~1e-6
-    relative on-device) but may select different line-search branches in
-    marginal scenarios, so final trajectories can differ on chaotic
-    landscapes; both monotonically descend the cost.
-    """
-    if backend == "vmap":
-        kwargs.pop("forward", None)  # fused-backend-only knob
-        kwargs.setdefault("unroll_scans", False)
-        return jax.vmap(
-            lambda x0: ilqr_solve(f, x0, Q, R, QF, x_goal, horizon, **kwargs)
-        )(x0s)
-    return _ilqr_solve_batched_fused(f, x0s, Q, R, QF, x_goal, horizon, **kwargs)
-
-
-def _ilqr_solve_batched_fused(
-    f, x0s, Q, R, QF, x_goal, horizon: int, iters: int = 20, reg: float = 1e-3,
-    use_fd: bool = False, fd_eps: float = 1e-4, us_init=None,
-    alphas: Tuple[float, ...] = (1.0, 0.6, 0.3, 0.1, 0.03, 0.01),
-    interpret: bool = False, forward: str = "pallas",
-) -> ILQRResult:
-    """forward="pallas" (default) rolls out ALL line-search alphas for
-    all scenarios in one whole-T kernel (kernels/ilqr_forward.py) — the
-    measured cost driver at the config-#3b shape (the 6-alpha forward
-    scan was 105% of the per-iteration time, scripts/ilqr_breakdown.py);
-    "xla" restores the vmapped scan. Requires a component-indexing plant
-    (models/plants.py house style — same contract as the MPPI/EKF
-    kernels) and assumes symmetric Q/QF."""
-    from numpower_tpu.kernels.ilqr_backward import ilqr_backward_fused
-
-    N = x0s.shape[0]
-    m = R.shape[0]
-    T = horizon
-    if us_init is None:
-        us = jnp.zeros((N, T, m), dtype=x0s.dtype)
-    else:
-        # accept the vmap backend's (T, m) shape too — broadcast per scenario
-        us = jnp.broadcast_to(us_init, (N, T, m)).astype(x0s.dtype)
-    roll = jax.vmap(lambda x0, u: rollout_nonlinear(f, x0, u))
-    xs = roll(x0s, us)
-    cost_fn = jax.vmap(lambda x, u: _total_cost(x, u, Q, R, QF, x_goal))
-    cost0 = cost_fn(xs, us)
-    alphas_arr = jnp.asarray(alphas, dtype=x0s.dtype)
-
-    def outer(carry, _):
-        xs, us, cost = carry
-        As, Bs = jax.vmap(
-            lambda x, u: linearize_trajectory(f, x, u, use_fd=use_fd, eps=fd_eps)
-        )(xs, us)
-        lxs = 2.0 * (xs[:, :T] - x_goal) @ Q.T
-        lus = 2.0 * us @ R.T
-        lxT = 2.0 * (xs[:, T] - x_goal) @ QF.T
-        ks, Ks = ilqr_backward_fused(
-            As, Bs, lxs, lus, 2.0 * Q, 2.0 * R, lxT, 2.0 * QF,
-            reg=reg, interpret=interpret,
-        )
-
-        if forward == "pallas":
-            from numpower_tpu.kernels.ilqr_forward import (
-                ilqr_forward_pallas,
-            )
-
-            A_n = alphas_arr.shape[0]
-            n = x0s.shape[1]
-            us_l, xs_l, costs_a = ilqr_forward_pallas(
-                f, Q, R, QF, x_goal, alphas_arr, x0s,
-                xs[:, :T].transpose(1, 2, 0),
-                us.transpose(1, 2, 0),
-                ks.transpose(1, 2, 0),
-                Ks.transpose(1, 2, 3, 0).reshape(T, m * n, N),
-                n_alphas=A_n, interpret=interpret)
-            us_all = us_l.transpose(0, 3, 1, 2)     # (A, N, T, m)
-            xs_all = xs_l.transpose(0, 3, 1, 2)     # (A, N, T+1, n)
-        else:
-            def try_alpha(alpha):
-                us_a, xs_a = jax.vmap(
-                    lambda x0, xs_n, us_n, k_n, K_n: _forward_pass(
-                        f, x0, xs_n, us_n, k_n, K_n, alpha
-                    )
-                )(x0s, xs, us, ks, Ks)
-                return cost_fn(xs_a, us_a), us_a, xs_a
-
-            costs_a, us_all, xs_all = jax.vmap(try_alpha)(alphas_arr)  # (A, N, ...)
-        best = jnp.argmin(costs_a, axis=0)  # (N,)
-        pick = lambda arr: jnp.take_along_axis(
-            arr, best[None, :].reshape((1, N) + (1,) * (arr.ndim - 2)), axis=0
-        )[0]
-        new_cost_cand = jnp.take_along_axis(costs_a, best[None, :], axis=0)[0]
-        improved = new_cost_cand < cost
-        new_xs = jnp.where(improved[:, None, None], pick(xs_all), xs)
-        new_us = jnp.where(improved[:, None, None], pick(us_all), us)
-        new_cost = jnp.where(improved, new_cost_cand, cost)
-        return (new_xs, new_us, new_cost), new_cost
-
-    (xs_f, us_f, cost_f), costs = lax.scan(outer, (xs, us, cost0), None, length=iters)
-    return ILQRResult(us=us_f, xs=xs_f, cost=cost_f, costs=costs.T)
+def ilqr_solve_batched(f, x0s, Q, R, QF, x_goal, horizon, **kwargs):
+    """Batched iLQR over scenarios: ilqr_solve vmapped over x0s (N, n).
+    Keyword arguments go to ilqr_solve (unroll_scans stays False: under
+    vmap each step carries the batch and unrolling does not pay)."""
+    kwargs.setdefault("unroll_scans", False)
+    return jax.vmap(
+        lambda x0: ilqr_solve(f, x0, Q, R, QF, x_goal, horizon, **kwargs)
+    )(x0s)

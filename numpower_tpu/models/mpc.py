@@ -12,14 +12,16 @@ from __future__ import annotations
 
 from typing import Optional
 
-import flax.struct
+import dataclasses
+
 import jax
 import jax.numpy as jnp
 
 from numpower_tpu.models.condensed import CondensedQP, condense
 
 
-@flax.struct.dataclass
+@jax.tree_util.register_dataclass
+@dataclasses.dataclass(frozen=True)
 class MPCState:
     """Warm-start state carried between ticks (checkpointable pytree)."""
 

@@ -71,7 +71,7 @@ def linearize(f: Callable, x, u) -> Tuple[jax.Array, jax.Array]:
 def linearize_finite_diff(f: Callable, x, u, eps: float = 1e-4):
     """Central finite-difference Jacobians via vmapped perturbations
     (BASELINE config #3). 2(n+m) plant evaluations batched into two vmaps —
-    the TPU equivalent of the reference user's per-column PHP loop."""
+    the batched equivalent of the reference user's per-column PHP loop."""
     n, m = x.shape[0], u.shape[0]
     ex = jnp.eye(n, dtype=x.dtype) * eps
     eu = jnp.eye(m, dtype=u.dtype) * eps

@@ -7,7 +7,7 @@ The glue a deployment needs around the solver/estimator families:
                   y_{t+1} = h(x_{t+1}) + v_t               [measurement]
                   x_hat   = estimator(est_state, y_{t+1}, u_t)
 
-TPU-native structure: the WHOLE closed loop — N parallel rollouts, every
+Structure: the WHOLE closed loop — N parallel rollouts, every
 controller solve, every filter update — is one lax.scan inside one jit.
 The reference user would run this as a PHP while-loop of eager nd:: calls
 with a host round-trip per op (SURVEY.md §3.2); here a 4096-trajectory,

@@ -6,7 +6,7 @@ with ~140 methods (method table numpower.c:5034-5209), operator overloads
 protocols (numpower.c:4899-4957), and a uuid-keyed global buffer registry
 (src/buffer.c).
 
-TPU-native design: a thin immutable wrapper over one `jax.Array`. No strides,
+Design: a thin immutable wrapper over one `jax.Array`. No strides,
 no views-with-refcounts, no device tag — XLA owns layout, jax.Array owns
 sharding/placement. What the reference models as mutation (offsetSet, fill)
 becomes functional `.at[].set` updates that rebind the wrapper's value.
@@ -131,7 +131,7 @@ class NDArray:
     # -- device model (compat shims over jax placement; SURVEY.md §5) -------
     def gpu(self) -> "NDArray":
         """Reference $x->gpu() (numpower.c:512 → ndarray.c:1038). Places the
-        array on the accelerator (TPU). No-op if none present."""
+        array on the accelerator (GPU). No-op if none present."""
         dev = _accel_device()
         return NDArray(jax.device_put(self._value, dev)) if dev else self.copy()
 

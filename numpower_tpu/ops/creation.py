@@ -1,6 +1,6 @@
 """Array creation / initializers.
 
-TPU-native re-design of the reference initializer layer
+Re-design of the reference initializer layer
 (/root/reference/src/initializers.c): where the reference recursively probes
 nested PHP arrays and memcpy's into a malloc'd fp32 buffer
 (initializers.c:30-233), we coerce any nested sequence / numpy array / jax

@@ -5,8 +5,8 @@ OpenMP naive gemm (dnn.c:16-193), NCHW Conv2D forward/backward
 (dnn.c:196-368), Conv1D with groups/dilation/4 padding modes (dnn.c:371-464),
 and a cuDNN descriptor path (cuda/cuda_dnn.cu:21-280).
 
-TPU-native design: `lax.conv_general_dilated` IS the im2col+gemm — XLA lowers
-it straight onto the MXU with fused layout handling, and
+Design: `lax.conv_general_dilated` IS the im2col+gemm — XLA lowers it to
+the backend's convolution (cuDNN on a GPU) with fused layout handling, and
 `lax.conv_transpose`-style dilated convs give the backward passes. Gradients
 are also available through jax.vjp on conv2d_forward; the explicit backward
 entry points mirror the reference API.
@@ -63,7 +63,7 @@ def conv2d_backward(x, w, grad_out, stride: IntPair = 1, padding="SAME",
 
     Implemented as the exact vjp of conv2d_forward — XLA emits the
     transposed-conv (data grad) and the cross-correlation (filter grad) as
-    MXU convs, the TPU equivalent of col2im + gemm_nt.
+    convolutions, the equivalent of col2im + gemm_nt.
     """
     x, w, grad_out = asarray(x), asarray(w), asarray(grad_out)
     _, vjp = jax.vjp(

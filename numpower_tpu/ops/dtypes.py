@@ -2,7 +2,7 @@
 
 Reference: /root/reference/src/types.c — string descriptors "float32" /
 "double64" with element-size lookup (get_type_size types.c:10, is_type
-types.c:25). The TPU build accepts those names (plus standard numpy names
+types.c:25). This build accepts those names (plus standard numpy names
 and bf16) and maps them to jnp dtypes.
 """
 
@@ -11,7 +11,7 @@ from __future__ import annotations
 import jax.numpy as jnp
 import numpy as np
 
-# reference names (types.c) + numpy names + TPU-native additions
+# reference names (types.c) + numpy names + additions (bf16 etc.)
 _DTYPE_MAP = {
     "float32": jnp.float32,
     "double64": jnp.float64,  # reference alias for double (types.c:13)

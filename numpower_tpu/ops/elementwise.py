@@ -5,8 +5,8 @@ Covers the reference's full scalar-math surface
 through NDArray_Map scalar loops, ndarray.c:683-744) and binary arithmetic
 (/root/reference/src/ndmath/arithmetics.c — AVX2 loops / per-op CUDA kernels).
 
-TPU-native design: every op is a jnp primitive; XLA fuses chains of them into
-single VPU loops, replacing both the AVX2 hand-vectorization and the
+Design: every op is a jnp primitive; XLA fuses chains of them into single
+elementwise kernels, replacing both the AVX2 hand-vectorization and the
 one-kernel-per-op CUDA dispatch (cuda_math.cu:1533-1560, no fusion) with
 compiler fusion. Broadcasting follows full NumPy rules — a strict superset of
 the reference's partial 2-d-only broadcast (ndarray.c:1167-1294, "@todo
@@ -100,8 +100,8 @@ def sqrt(a):
 
 
 def rsqrt(a):
-    """double_math.c float_rsqrt = 1/sqrt. jax.lax.rsqrt maps to the VPU's
-    native reciprocal-sqrt."""
+    """double_math.c float_rsqrt = 1/sqrt. jax.lax.rsqrt maps to the
+    hardware's native reciprocal square root."""
     return jax.lax.rsqrt(asarray(a))
 
 

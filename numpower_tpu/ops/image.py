@@ -5,7 +5,7 @@ NDArray_FromGD / NDArray_ToGD with AVX2-packed RGB(A) writes; bindings
 numpower.c:481-508,2129-2149) converting PHP GdImage objects to 3xHxW (CHW)
 or HxWx3 (HWC) fp32 tensors, with optional [0,1] normalization.
 
-TPU-native design: GD does not exist here; the bridge accepts/produces the
+Design: GD does not exist here; the bridge accepts/produces the
 Python ecosystem's interchange types — uint8 numpy arrays (and PIL images
 when available, gated) — with identical CHW/HWC/fp32/normalize semantics.
 """

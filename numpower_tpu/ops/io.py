@@ -5,7 +5,7 @@ Reference: raw-struct fwrite/fread NDArray_Save/Load
 into unallocated `iterator`/`data` pointers) and PHP `__serialize` via nested
 arrays (numpower.c:4959-4991; GPU arrays must be moved to CPU first).
 
-TPU-native design (SURVEY.md §5): dtype/shape-tagged **.npy-compatible**
+Design (SURVEY.md §5): dtype/shape-tagged **.npy-compatible**
 files — portable, versioned, self-describing — with no device restriction
 (device→host transfer is implicit and explicit device placement is a
 sharding, not a file property). When the C++ runtime is available its mmap'd

@@ -4,7 +4,7 @@ Reference: /root/reference/src/logic.c — AVX2 `_mm256_cmp_ps`+blend loops and
 CUDA compare kernels producing **fp32 0/1 mask arrays** (logic.c:68-164).
 We keep that convention at this layer (masks are float32 0/1, not bool) so
 parity tests and downstream arithmetic-on-masks behave identically; XLA fuses
-the compare+select into a single VPU op anyway. Full NumPy broadcasting —
+the compare+select into a single elementwise op anyway. Full NumPy broadcasting —
 superset of the reference's scalar-promote+partial-broadcast preamble.
 """
 

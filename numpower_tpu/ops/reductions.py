@@ -3,8 +3,8 @@
 Reference machinery: /root/reference/src/ndarray.c:394-578 — a recursive
 first-axis iterator that launches one full binary-op kernel **per slice** of
 the reduced axis (O(axis_len) kernel launches + temp allocations; see
-SURVEY.md §3.4). TPU-native design: every reduction is a single XLA reduce
-that tiles onto the VPU; axis handling, keepdims, and NaN semantics follow
+SURVEY.md §3.4). Design: every reduction is a single XLA reduce; axis
+handling, keepdims, and NaN semantics follow
 NumPy, matching the reference where it defines behavior:
 
 - argmin/argmax propagate NaN (first NaN wins — calculation.c:15-27);

@@ -5,9 +5,9 @@ scalar engine (signal.c:113-211) with modes full/same/valid and boundaries
 fill/wrap(circular)/symm(reflect), flip flag distinguishing convolve vs
 correlate; CPU-only.
 
-TPU-native design: boundary handling becomes a `jnp.pad` (constant / wrap /
+Design: boundary handling becomes a `jnp.pad` (constant / wrap /
 symmetric) and the convolution itself is one `lax.conv_general_dilated`,
-which XLA lowers onto the MXU — no scalar loops.
+which XLA lowers to the backend's convolution — no scalar loops.
 """
 
 from __future__ import annotations

@@ -1,4 +1,4 @@
-"""Mesh / sharding / multi-host scaling (SURVEY.md §2.5 TPU-native column)."""
+"""Mesh / sharding / multi-host scaling (SURVEY.md §2.5)."""
 
 from numpower_tpu.parallel.mesh import (  # noqa: F401
     make_mesh, data_sharding, model_sharding, replicated, shard_batch,

@@ -1,9 +1,8 @@
 """Multi-host runtime setup.
 
 The reference is strictly single-process (SURVEY.md §2.5: no comm lib of any
-kind). TPU-native equivalent: `jax.distributed.initialize` wires the
-multi-host XLA runtime; within a pod slice collectives ride ICI, across
-slices DCN. Solvers in numpower_tpu.parallel are written against a Mesh and
+kind). Here `jax.distributed.initialize` wires the multi-host XLA runtime;
+collectives between GPUs go through NCCL. Solvers in numpower_tpu.parallel are written against a Mesh and
 work unchanged on 1 chip, 1 host, or N hosts — only the mesh construction
 differs (jax.devices() spans all hosts after initialize()).
 """
@@ -21,7 +20,8 @@ def initialize(
     process_id: Optional[int] = None,
 ) -> None:
     """Initialize the multi-host runtime (idempotent, env-var driven when
-    args are None — standard JAX cluster auto-detection on TPU pods).
+    args are None — standard JAX cluster auto-detection; on a plain host
+    pass coordinator_address, num_processes and process_id).
 
     Must run before any backend use: probing the backend first (even
     jax.process_count()) initializes a single-process runtime and the

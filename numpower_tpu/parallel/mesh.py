@@ -1,6 +1,6 @@
 """Device mesh construction.
 
-TPU-native replacement for the reference's device model: a per-array integer
+Replacement for the reference's device model: a per-array integer
 device tag + global cudaSetDevice (/root/reference/src/ndarray.h:73,
 numpower.c:615-635) becomes a named `jax.sharding.Mesh` with axes
 
@@ -8,7 +8,8 @@ numpower.c:615-635) becomes a named `jax.sharding.Mesh` with axes
     model — QP / condensed-matrix blocks (TP)
 
 Placement is expressed per-array as NamedSharding(mesh, PartitionSpec(...)),
-and XLA inserts ICI collectives where shardings meet — no NCCL/MPI port.
+and XLA inserts collectives where shardings meet (NCCL between GPUs) —
+no hand-written communication layer.
 """
 
 from __future__ import annotations
@@ -60,7 +61,7 @@ def replicated(mesh: Mesh) -> NamedSharding:
 
 
 def shard_batch(x: jax.Array, mesh: Mesh) -> jax.Array:
-    """Place a scenario batch onto the mesh's data axis — the TPU-native
+    """Place a scenario batch onto the mesh's data axis — the
     equivalent of the reference's explicit $x->gpu() transfer
     (numpower.c:512 -> ndarray.c:1038)."""
     return jax.device_put(x, data_sharding(mesh))

@@ -1,16 +1,16 @@
 """Pipeline parallelism over the MPC horizon (PP row of SURVEY.md §2.5).
 
-The reference has no parallel execution at all; the TPU-native equivalent of
+The reference has no parallel execution at all; the equivalent of
 pipeline parallelism maps the *horizon* (time) axis onto the mesh: device d
 owns horizon stages [d*T/D, (d+1)*T/D) and scenario microbatches flow through
 the stage groups, boundary states handed to the next device with
-`lax.ppermute` over ICI. Classic 1F pipeline schedule: with M microbatches
+`lax.ppermute` between devices. Classic 1F pipeline schedule: with M microbatches
 and D devices, wall-clock ~ (M + D - 1) stage-group steps vs M*D sequential
 — the utilization win appears when M >> D.
 
 For T=30 horizons a single device wins (the scan is tiny); this engine is
 for LONG horizons (T in the thousands — e.g. full-trajectory optimization)
-where per-device VMEM/HBM cannot hold the whole unrolled horizon, the same
+where per-device memory cannot hold the whole unrolled horizon, the same
 regime where LLM pipeline parallelism pays.
 
 Arbitrary shapes: T and N need not divide the pipeline width — the horizon

@@ -13,7 +13,7 @@ elements (F, C, J) of models/lqr.py:
   1. local:  each device runs the O(log blk) reverse associative scan over
              its contiguous stage block -> per-stage local suffixes + the
              block's total composition,
-  2. global: block totals are all_gather'ed over ICI (D tiny (n, n) triples)
+  2. global: block totals are all_gather'ed (D tiny (n, n) triples)
              and every device folds the totals of LATER blocks (plus the
              terminal (0, 0, QF) element) into its after-block suffix S_d,
   3. apply:  one _combine of each local suffix with S_d yields the exact
@@ -21,7 +21,7 @@ elements (F, C, J) of models/lqr.py:
              (R + B'PB)^{-1} B'PA solve vmapped over the block.
 
 The cross-device traffic is ONE all_gather of 3 * D * n * n floats — for
-n=12, D=64 that is ~110 KB once per solve, riding ICI.
+n=12, D=64 that is ~110 KB once per solve.
 
 Reference parity: the reference has no distributed execution at all
 (SURVEY.md §2.5); its users hand-roll sequential Riccati loops in PHP over
@@ -129,7 +129,7 @@ def riccati_associative_sharded(A, B, Q, R, QF, horizon: int, mesh: Mesh,
     # Lay the stage stacks out with the shard_map's expected shardings up
     # front: without this, upstream-produced shardings force the SPMD
     # partitioner into an involuntary full rematerialization (replicate +
-    # repartition — full-tensor ICI/DCN traffic per solve on a real pod;
+    # repartition — full-tensor traffic between devices per solve;
     # VERDICT r2 weak #2). device_put is a no-op when already placed and a
     # sharding constraint under tracing.
     shard_spec = NamedSharding(mesh, P(axis))

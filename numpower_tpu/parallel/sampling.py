@@ -3,7 +3,7 @@ weak #6 / next-round #5 — mesh coverage for the sampling families).
 
 Both are built to be MESH-SHAPE-INVARIANT: every random draw is generated
 from the same key stream as the single-device solver (the full array is
-generated per device — counter-based Threefry makes this cheap VPU work —
+generated per device — counter-based Threefry makes this cheap elementwise work —
 and each device slices its rows), so
 
     sharded(mesh(1,1)) == sharded(mesh(D,1)) == single-device solver
@@ -14,13 +14,13 @@ correctness into an exact parity test instead of a statistical one
 (parallel/sharding.py).
 
 Reference parity: the reference has NO sampling solvers and no
-distributed execution at all (SURVEY.md §2.5); these are TPU-native
+distributed execution at all (SURVEY.md §2.5); these are new
 additions on the op surface it provides (matmul/cholesky/exp/cumsum,
 /root/reference/src/ndmath/).
 
   - MPPI: scenarios over the `data` axis (embarrassing), samples over the
     `model` axis — the softmax normalizer, ESS, and the weighted
-    perturbation update become pmax/psum collectives riding ICI
+    perturbation update become pmax/psum collectives
     (SURVEY.md §2.5 DP row: "4096+ scenarios per chip").
   - Particle filter: particles sharded; weights/ESS/moments are psum'd;
     systematic resampling all_gathers the cloud (N*n fp32 — ~8 KB at
@@ -219,7 +219,7 @@ def particle_filter_dp(
             # gather the cloud, rebuild the GLOBAL slot boundaries exactly
             # as models/particle._systematic_resample, then each device
             # produces only ITS row block — as a one-hot contraction (the
-            # r4 MXU formulation) inside the envelope, or a sliced gather
+            # one-hot matmul formulation) inside the envelope, or a sliced gather
             # past it (see docstring; models/particle envelope note)
             from numpower_tpu.models.particle import (
                 RESAMPLE_ONEHOT_MAX_N, _resample_slots,

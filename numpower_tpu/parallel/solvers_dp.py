@@ -10,7 +10,7 @@ as solve_mpc_boxqp_dp (parallel/sharding.py). Parity with the unsharded
 solvers is therefore exact.
 
 Reference parity: the reference has no distributed execution and neither
-solver family (SURVEY.md §2.5; AL-iLQR/MHE are TPU-native additions).
+solver family (SURVEY.md §2.5; AL-iLQR/MHE are additions of this engine).
 """
 
 from __future__ import annotations
@@ -24,11 +24,10 @@ from jax.sharding import Mesh, PartitionSpec as P
 
 
 def al_ilqr_solve_dp(f, x0s, Q, R, QF, x_goal, horizon: int, u_lo, u_hi,
-                     mesh: Mesh, backend: str = "vmap", **kwargs):
+                     mesh: Mesh, **kwargs):
     """Scenario-DP AL-iLQR: x0s (N, n) sharded on the data axis; each
-    device runs the batched solver on its shard (backend="fused" keeps
-    the per-device Pallas backward kernel — the multi-chip program is the
-    single-chip one per device). Returns the ALILQRResult with leaves
+    device runs the batched solver on its shard (the multi-device program
+    is the single-device one per device). Returns the ALILQRResult with leaves
     sharded on axis 0 plus a replicated global worst-case constraint
     violation (pmax over the data axis)."""
     from numpower_tpu.models.al_ilqr import al_ilqr_solve_batched
@@ -37,7 +36,7 @@ def al_ilqr_solve_dp(f, x0s, Q, R, QF, x_goal, horizon: int, u_lo, u_hi,
 
     def per_device(x0_shard):
         res = al_ilqr_solve_batched(f, x0_shard, Q, R, QF, x_goal, horizon,
-                                    u_lo, u_hi, backend=backend, **kwargs)
+                                    u_lo, u_hi, **kwargs)
         worst = jax.lax.pmax(jnp.max(res.max_violation), axis_name=data_ax)
         return res, worst
 

@@ -1,6 +1,6 @@
 // numpower_tpu native runtime.
 //
-// TPU-native re-design of the reference's C runtime pieces:
+// Re-design of the reference's C runtime pieces:
 //  - buffer registry / "GC engine" (/root/reference/src/buffer.c): growable
 //    uuid -> slot table with allocation counters used for leak accounting
 //    (buffer.c:15-18, add_to_buffer buffer.c:91-121, buffer_ndarray_free

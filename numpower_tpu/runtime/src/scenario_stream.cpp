@@ -1,6 +1,6 @@
 // Native scenario-stream data loader.
 //
-// TPU-native runtime component with no reference counterpart (the reference
+// Runtime component with no reference counterpart (the reference
 // generates data in PHP userland one rand() call at a time,
 // /root/reference/src/initializers.c:517-590): large MPC sweeps (BASELINE
 // config #5, 65k scenarios) need disturbance/initial-state batches produced

@@ -1,9 +1,9 @@
 """Checkpoint / resume for solver state.
 
 SURVEY.md §5: the reference's persistence is a raw struct fwrite with latent
-load bugs (ndarray.c:1356-1404) plus PHP serialization. TPU equivalent:
-dtype/shape-tagged array trees — orbax when available, with a portable
-npz fallback (both formats self-describing, host-device agnostic).
+load bugs (ndarray.c:1356-1404) plus PHP serialization. Here: dtype/shape-
+tagged array trees in one portable .npz file (self-describing, host-device
+agnostic).
 
 Typical use: checkpoint a receding-horizon controller's warm-start state
 (previous U, nominal trajectory, RNG key) so a restarted process resumes
@@ -13,7 +13,6 @@ mid-sweep.
 from __future__ import annotations
 
 import json
-import os
 from typing import Any, Dict
 
 import jax
@@ -27,39 +26,27 @@ def _flatten(tree: Any):
 
 
 def save_checkpoint(path: str, tree: Any, metadata: Dict | None = None) -> None:
-    """Save a pytree of arrays. Directory path -> orbax; file path -> npz."""
-    if path.endswith(".npz"):
-        leaves, treedef = _flatten(tree)
-        arrays = {f"leaf_{i}": np.asarray(jax.device_get(x)) for i, x in enumerate(leaves)}
-        arrays["__treedef__"] = np.frombuffer(
-            json.dumps(
-                {"treedef": str(treedef), "meta": metadata or {}}
-            ).encode(), dtype=np.uint8
-        )
-        np.savez(path, **arrays)
-        return
-    import orbax.checkpoint as ocp
-
-    ckptr = ocp.StandardCheckpointer()
-    ckptr.save(os.path.abspath(path), tree, force=True)
-    ckptr.wait_until_finished()
+    """Save a pytree of arrays to an .npz file."""
+    if not path.endswith(".npz"):
+        raise ValueError(f"checkpoint path must end in .npz: {path!r}")
+    leaves, treedef = _flatten(tree)
+    arrays = {f"leaf_{i}": np.asarray(jax.device_get(x)) for i, x in enumerate(leaves)}
+    arrays["__treedef__"] = np.frombuffer(
+        json.dumps(
+            {"treedef": str(treedef), "meta": metadata or {}}
+        ).encode(), dtype=np.uint8
+    )
+    np.savez(path, **arrays)
 
 
 def load_checkpoint(path: str, like: Any = None) -> Any:
-    """Load a pytree. For .npz, `like` provides the tree structure."""
-    if path.endswith(".npz"):
-        data = np.load(path, allow_pickle=False)
-        leaves = [jnp.asarray(data[f"leaf_{i}"]) for i in range(len(data.files) - 1)]
-        if like is not None:
-            _, treedef = _flatten(like)
-            return jax.tree_util.tree_unflatten(treedef, leaves)
-        return leaves
-    import orbax.checkpoint as ocp
-
-    ckptr = ocp.StandardCheckpointer()
+    """Load a pytree from an .npz file; `like` provides the tree structure
+    (without it the flat list of leaves is returned)."""
+    if not path.endswith(".npz"):
+        raise ValueError(f"checkpoint path must end in .npz: {path!r}")
+    data = np.load(path, allow_pickle=False)
+    leaves = [jnp.asarray(data[f"leaf_{i}"]) for i in range(len(data.files) - 1)]
     if like is not None:
-        abstract = jax.tree_util.tree_map(
-            lambda x: jax.ShapeDtypeStruct(jnp.shape(x), jnp.result_type(x)), like
-        )
-        return ckptr.restore(os.path.abspath(path), abstract)
-    return ckptr.restore(os.path.abspath(path))
+        _, treedef = _flatten(like)
+        return jax.tree_util.tree_unflatten(treedef, leaves)
+    return leaves

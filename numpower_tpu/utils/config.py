@@ -3,7 +3,7 @@
 The reference (NumPower) configures itself with compile-time autoconf macros
 (HAVE_AVX2/HAVE_CUBLAS/... — /root/reference/config.m4:13-117) and a handful of
 env vars (NDARRAY_BUFFERLEAK / NDARRAY_VCHECK — /root/reference/numpower.c:5268-5277).
-The TPU-native build replaces that with one runtime dataclass + env overrides:
+This build replaces that with one runtime dataclass + env overrides:
 precision policy, mesh shape, and solver tolerances are runtime decisions under
 XLA, not build-time ones.
 """
@@ -24,7 +24,7 @@ class Config:
     # numerics default and use bf16 only where a kernel explicitly opts in.
     default_dtype: jnp.dtype = jnp.float32
 
-    # Matmul accumulation dtype on the MXU ("highest" => fp32 accumulation).
+    # Matmul precision ("highest" => full fp32 products, no TF32/bf16).
     matmul_precision: str = "highest"
 
     # Mesh axis names used throughout parallel/: data = MPC scenarios,
@@ -49,3 +49,26 @@ config = Config()
 
 def default_dtype() -> jnp.dtype:
     return config.default_dtype
+
+
+# The checkout this package lives in (the compile cache's default home).
+REPO_ROOT = os.path.dirname(os.path.dirname(os.path.dirname(
+    os.path.abspath(__file__))))
+
+
+def enable_compile_cache() -> str:
+    """Turn on JAX's persistent compilation cache and return its directory.
+
+    When JAX_COMPILATION_CACHE_DIR is set, JAX reads it itself and nothing
+    else is set here. Otherwise the cache goes to the fixed path
+    <repo>/.jax_cache/ (listed in .gitignore), so that later processes in
+    the same checkout find what earlier ones compiled. Called by the
+    scripts (chip_smoke.py, bench.py, examples), never on import."""
+    import jax
+
+    path = os.environ.get("JAX_COMPILATION_CACHE_DIR")
+    if path:
+        return path
+    path = os.path.join(REPO_ROOT, ".jax_cache")
+    jax.config.update("jax_compilation_cache_dir", path)
+    return path

@@ -5,7 +5,7 @@ Reference: /root/reference/src/debug.c — NDArray_Dump struct dump
 (debug.c:58-184), CUDA device-property dump (debug.c:218-258); plus buffer
 allocation counters (buffer.c:15-18).
 
-TPU-native: dump() reports the jax.Array's sharding/committed device(s) and
+Here dump() reports the jax.Array's sharding/committed device(s) and
 layout instead of strides/refcounts; dump_devices() reports the JAX device
 topology (platform, kind, process index, memory stats where exposed).
 """

@@ -1,19 +1,16 @@
 """Small-matrix linear algebra as unrolled lane-parallel elementwise ops.
 
 XLA lowers jnp.linalg.cholesky / jnp.linalg.solve to LAPACK-style blocked
-custom calls (batched LU runs its pivoting loops PER MATRIX); on TPU these
+custom calls (batched LU runs its pivoting loops PER MATRIX); these can
 dominate any hot path that factors n <= ~12 matrices inside a scan or over
-a large batch — measured: the batched (4096, 12, 12) cholesky is ~50x off
-speed-of-light, and the parallel-in-time Kalman filter spent 7 of its
-8.4 ms in batched LU (BASELINE.md 2026-08-21). The reference hits the same
+a large batch. The reference hits the same
 operations through LAPACKE_spotrf/sgesv one matrix at a time
 (/root/reference/src/ndmath/linalg.c:1068, :893).
 
-The TPU-native answer for tiny n is to unroll the factorization at trace
-time: every line below indexes [..., i, j], so each of the O(n^2..n^3)
-generated operations is a pure elementwise op over the batch dims — the
-exact formulation the Pallas kernels use in-register
-(kernels/riccati.py _chol_solve_rows), available here to plain XLA code
+The answer for tiny n is to unroll the factorization at trace time: every
+line below indexes [..., i, j], so each of the O(n^2..n^3) generated
+operations is a pure elementwise op over the batch dims, available to plain
+XLA code
 (scans, vmapped solvers) without a kernel boundary. Numerically these are
 the SAME recurrences LAPACK runs, so parity bounds are unchanged.
 
@@ -48,7 +45,7 @@ def cholesky_unrolled(M):
         acc = M[..., j, j]
         for k in range(j):
             acc = acc - L[j][k] * L[j][k]
-        # one rsqrt replaces sqrt + reciprocal (both multi-cycle VPU ops;
+        # one rsqrt replaces sqrt + reciprocal (both multi-cycle ops;
         # same domain: non-PD pivots still yield NaN from this column on)
         inv = lax.rsqrt(acc)
         L[j][j] = acc * inv
@@ -120,7 +117,7 @@ def tri_solve_unrolled(L, rhs, lower: bool = True):
         ks = range(i) if lower else range(i + 1, n)
         for k in ks:
             acc = acc - L[..., i, k][..., None] * x[k]
-        # reciprocal once, multiply r columns (divide is the slow VPU op)
+        # reciprocal once, multiply r columns (divide is the slow op)
         x[i] = acc * (1.0 / L[..., i, i])[..., None]
     out = jnp.stack(x, axis=-2)
     return out[..., 0] if vec else out
@@ -161,9 +158,8 @@ def lu_solve_unrolled(M, rhs):
     W = jnp.concatenate([M, rhs], axis=-1)          # (..., n, n + r)
     ridx = jnp.arange(n)
     # Gauss-Jordan with IMPLICIT pivoting: rows are never physically
-    # swapped (a batched take_along_axis row gather measured 3.2 ms vs
-    # 0.61 ms for masked-select swaps vs ~0.3 ms for this form on a
-    # (4096,12,12) 24-rhs solve, v5e 2026-08-21). Each step picks the
+    # swapped (a batched take_along_axis row gather and masked-select swaps
+    # were both slower than this form). Each step picks the
     # largest-|.| not-yet-pivoted row of column k via a masked argmax,
     # eliminates column k from EVERY other row (one rank-1 update of the
     # full augmented block), and remembers the pivot assignment as a

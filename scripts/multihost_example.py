@@ -1,16 +1,16 @@
 #!/usr/bin/env python
 """Multi-host tube-MPC sweep example (BASELINE config #5 at pod scale).
 
-Run ONE copy of this script per host of a TPU pod slice (e.g. v5e-16):
+Run ONE copy of this script per host of a multi-host cluster:
 
-    # on every host (GCE TPU VM / GKE pod):
+    # on every host (a cluster JAX auto-detects, e.g. SLURM):
     python scripts/multihost_example.py --scenarios 65536
 
-jax.distributed.initialize() auto-detects the TPU cluster (coordinator,
-process id, device topology); afterwards jax.devices() spans every chip in
-the slice and the SAME mesh programs used on one chip scale out — XLA routes
-collectives over ICI within the slice and DCN across slices. There is no
-NCCL/MPI analogue to configure (SURVEY.md §2.5).
+jax.distributed.initialize() auto-detects the cluster (coordinator, process
+id, device topology); elsewhere pass coordinator_address, num_processes and
+process_id. Afterwards jax.devices() spans every card and the SAME mesh
+programs used on one card scale out — XLA routes the collectives (NCCL
+between GPUs). There is nothing else to configure (SURVEY.md §2.5).
 
 Single-process environments fall back gracefully, so this file also serves
 as a runnable smoke test:

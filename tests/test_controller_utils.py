@@ -57,13 +57,14 @@ def test_checkpoint_npz_roundtrip(tmp_path):
     assert int(restored["tick"]) == 7
 
 
-def test_checkpoint_orbax_roundtrip(tmp_path):
-    pytest.importorskip("orbax.checkpoint")
+def test_checkpoint_nested_tree_and_path_check(tmp_path):
     tree = {"a": jnp.ones((2, 2)), "b": {"c": jnp.zeros(3)}}
-    p = str(tmp_path / "ckpt")
+    p = str(tmp_path / "ckpt.npz")
     save_checkpoint(p, tree)
     restored = load_checkpoint(p, like=tree)
     np.testing.assert_array_equal(np.asarray(restored["b"]["c"]), np.zeros(3))
+    with pytest.raises(ValueError, match="npz"):
+        save_checkpoint(str(tmp_path / "ckpt"), tree)
 
 
 def test_timer_phases():

@@ -1,610 +1,228 @@
-"""Pallas kernel parity tests (interpret mode on CPU; compiled path covered
-by bench runs on real TPU)."""
+"""Fused box-QP kernel tests (kernels/boxqp.py) in the Pallas interpreter.
+
+The compiled kernels run only on a GPU: the `gpu`-marked tests at the end
+cover them there, and chip_smoke.py checks them at the flagship width."""
+
+import os
+import sys
 
 import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
 
-from numpower_tpu.kernels.boxqp_fista import fista_boxqp_pallas
-from numpower_tpu.models import condense, quadrotor12, solve_boxqp_fista, gradient_offset
+from numpower_tpu.kernels import boxqp as kernels
+from numpower_tpu.models import (
+    condense, gradient_offset, quadrotor12, solve_boxqp_fista,
+    solve_mpc_boxqp, solve_mpc_boxqp_admm,
+)
+from numpower_tpu.models.admm import minv_factor
+from numpower_tpu.models.boxqp import prediction_chain
+from numpower_tpu.models.condensed import admm_coarse_iters, default_coarse_iters
+
+sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
+from chip_smoke import boxqp_ref, condense_ref, flagship_costs, quadrotor_plant  # noqa: E402
+
+
+def _quad_qp(T):
+    A, B = quadrotor12(0.02)
+    Q, R, QF = (jnp.asarray(M, jnp.float32) for M in flagship_costs())
+    return condense(A, B, Q, R, QF, T)
 
 
 @pytest.fixture(scope="module")
 def qp_and_g():
-    A, B = quadrotor12(0.02)
-    Q = jnp.eye(12); R = jnp.eye(4) * 0.1; QF = jnp.eye(12) * 5.0
-    qp = condense(A, B, Q, R, QF, 10)  # d = 40
+    qp = _quad_qp(10)  # d = 40
     rng = np.random.default_rng(0)
     x0s = jnp.asarray(0.3 * rng.standard_normal((24, 12)).astype(np.float32))
-    g = gradient_offset(qp, x0s)
-    return qp, g
+    return qp, gradient_offset(qp, x0s), x0s
+
+
+def _fista(qp, x0s, lo, hi, iters, coarse_iters=0, U0=None, x_ref=None):
+    W, b = prediction_chain(qp, x_ref)
+    return kernels.fista_mpc(qp.H, W, b, x0s, lo, hi, qp.lipschitz,
+                             iters=iters, coarse_iters=coarse_iters, U0=U0,
+                             interpret=True)
+
+
+def _admm(qp, x0s, lo, hi, iters, coarse_iters=0, U0=None):
+    W, b = prediction_chain(qp)
+    rho = jnp.sqrt(qp.lipschitz * jnp.maximum(qp.mu, 1e-12))
+    return kernels.admm_mpc(minv_factor(qp.H, rho), W, b, x0s, lo, hi, rho,
+                            1.6, iters=iters, coarse_iters=coarse_iters,
+                            U0=U0, interpret=True)
 
 
 def test_fista_kernel_matches_xla(qp_and_g):
-    qp, g = qp_and_g
+    qp, g, x0s = qp_and_g
     ref = solve_boxqp_fista(qp.H, g, -0.5, 0.5, L=qp.lipschitz, iters=60)
-    U = fista_boxqp_pallas(
-        qp.H, g, jnp.float32(-0.5), jnp.float32(0.5), qp.lipschitz,
-        iters=60, tile_n=16, interpret=True,
-    )
-    np.testing.assert_allclose(np.asarray(U), np.asarray(ref.U), rtol=1e-4, atol=1e-5)
+    U, _ = _fista(qp, x0s, -0.5, 0.5, 60)
+    np.testing.assert_allclose(np.asarray(U), np.asarray(ref.U), rtol=1e-4,
+                               atol=1e-5)
 
 
 def test_fista_kernel_ragged_batch(qp_and_g):
     # N=24 with tile 16 -> padding path exercised
-    qp, g = qp_and_g
-    U = fista_boxqp_pallas(
-        qp.H, g, jnp.float32(-0.5), jnp.float32(0.5), qp.lipschitz,
-        iters=30, tile_n=16, interpret=True,
-    )
+    qp, g, x0s = qp_and_g
+    U, _ = _fista(qp, x0s, -0.5, 0.5, 30)
     assert U.shape == g.shape
     assert float(jnp.max(jnp.abs(U))) <= 0.5 + 1e-6
 
 
 def test_fista_kernel_unconstrained_parity(qp_and_g):
-    qp, g = qp_and_g
-    U = fista_boxqp_pallas(
-        qp.H, g, jnp.float32(-1e6), jnp.float32(1e6), qp.lipschitz,
-        iters=400, tile_n=16, interpret=True,
-    )
-    U_ref = -np.linalg.solve(np.asarray(qp.H, np.float64), np.asarray(g, np.float64).T).T
+    qp, g, x0s = qp_and_g
+    U, _ = _fista(qp, x0s, -1e6, 1e6, 400)
+    U_ref = -np.linalg.solve(np.asarray(qp.H, np.float64),
+                             np.asarray(g, np.float64).T).T
     np.testing.assert_allclose(np.asarray(U), U_ref, rtol=2e-3, atol=1e-3)
 
 
-def test_cholesky_batched_matches_jnp():
-    from numpower_tpu.kernels.cholesky import cholesky_batched
-
-    rng = np.random.default_rng(1)
-    a = rng.standard_normal((40, 12, 12)).astype(np.float32)
-    spd = jnp.asarray(a @ a.transpose(0, 2, 1) + 8 * np.eye(12, dtype=np.float32))
-    L = cholesky_batched(spd, tile_b=128, interpret=True)
-    L_ref = jnp.linalg.cholesky(spd)
-    np.testing.assert_allclose(np.asarray(L), np.asarray(L_ref), rtol=1e-4, atol=1e-4)
-    # strictly upper triangle is exactly zero
-    assert float(jnp.max(jnp.abs(jnp.triu(L, 1)))) == 0.0
-
-
-def test_psd_solve_batched_matches_jnp():
-    from numpower_tpu.kernels.cholesky import psd_solve_batched
-
-    rng = np.random.default_rng(2)
-    a = rng.standard_normal((24, 8, 8)).astype(np.float32)
-    spd = jnp.asarray(a @ a.transpose(0, 2, 1) + 6 * np.eye(8, dtype=np.float32))
-    b = jnp.asarray(rng.standard_normal((24, 8, 5)).astype(np.float32))
-    X = psd_solve_batched(spd, b, tile_b=128, interpret=True)
-    X_ref = jnp.linalg.solve(spd, b)
-    np.testing.assert_allclose(np.asarray(X), np.asarray(X_ref), rtol=2e-3, atol=2e-4)
-    # residual check
-    np.testing.assert_allclose(
-        np.asarray(jnp.einsum("nij,njk->nik", spd, X)), np.asarray(b),
-        rtol=2e-3, atol=2e-3,
-    )
-
-
-def test_psd_solve_batched_riccati_shapes():
-    # the Riccati inner-op shape: n=4 controls, m=12 states
-    from numpower_tpu.kernels.cholesky import psd_solve_batched
-
-    rng = np.random.default_rng(3)
-    a = rng.standard_normal((17, 4, 4)).astype(np.float32)  # ragged batch
-    spd = jnp.asarray(a @ a.transpose(0, 2, 1) + 3 * np.eye(4, dtype=np.float32))
-    b = jnp.asarray(rng.standard_normal((17, 4, 12)).astype(np.float32))
-    X = psd_solve_batched(spd, b, tile_b=128, interpret=True)
-    np.testing.assert_allclose(
-        np.asarray(jnp.einsum("nij,njk->nik", spd, X)), np.asarray(b),
-        rtol=2e-3, atol=2e-3,
-    )
-
-
 def test_fista_kernel_warm_start(qp_and_g):
-    qp, g = qp_and_g
-    # cold solve to near-convergence
-    U_star = fista_boxqp_pallas(
-        qp.H, g, jnp.float32(-0.5), jnp.float32(0.5), qp.lipschitz,
-        iters=300, tile_n=16, interpret=True,
-    )
-    # warm start from the solution: few iterations must stay at the solution
-    U_warm = fista_boxqp_pallas(
-        qp.H, g, jnp.float32(-0.5), jnp.float32(0.5), qp.lipschitz,
-        iters=5, tile_n=16, interpret=True, U0=U_star,
-    )
+    qp, _, x0s = qp_and_g
+    U_star, _ = _fista(qp, x0s, -0.5, 0.5, 300)
+    # warm start from the solution: few iterations must stay at it
+    U_warm, _ = _fista(qp, x0s, -0.5, 0.5, 5, U0=U_star)
     np.testing.assert_allclose(np.asarray(U_warm), np.asarray(U_star),
                                rtol=1e-4, atol=1e-5)
 
 
-def test_riccati_fused_matches_reference():
-    from numpower_tpu.kernels.riccati import riccati_batched_fused
-    from numpower_tpu.models import riccati_scan_per_scenario, quadrotor12
-
-    A, B = quadrotor12(0.02)
-    N = 8
-    rng = np.random.default_rng(0)
-    As = jnp.asarray(np.tile(np.asarray(A), (N, 1, 1))
-                     + 0.01 * rng.standard_normal((N, 12, 12)).astype(np.float32))
-    Bs = jnp.asarray(np.tile(np.asarray(B), (N, 1, 1))
-                     + 0.01 * rng.standard_normal((N, 12, 4)).astype(np.float32))
-    Q = np.eye(12, dtype=np.float32)
-    R = np.eye(4, dtype=np.float32) * 0.1
-    QF = np.eye(12, dtype=np.float32) * 5.0
-    Ks_f, P0_f = riccati_batched_fused(As, Bs, Q, R, QF, 20, tile_b=128,
-                                       interpret=True)
-    Ks_r, P0_r = riccati_scan_per_scenario(As, Bs, Q, R, QF, 20, method="xla")
-    np.testing.assert_allclose(np.asarray(Ks_f), np.asarray(Ks_r),
-                               rtol=1e-3, atol=1e-4)
-    np.testing.assert_allclose(np.asarray(P0_f), np.asarray(P0_r),
-                               rtol=1e-3, atol=1e-3)
-
-
-def test_ilqr_backward_fused_matches_xla():
-    from numpower_tpu.kernels.ilqr_backward import ilqr_backward_fused
-    from numpower_tpu.models import cartpole_step, linearize_trajectory, rollout_nonlinear
-    from numpower_tpu.models.ilqr import _backward_pass
-
-    N, T = 4, 10
-    Q = jnp.eye(4); R = jnp.eye(1) * 0.01; QF = jnp.eye(4) * 10.0
-    x_goal = jnp.zeros(4)
-    rng = np.random.default_rng(0)
-    x0s = jnp.asarray(0.3 * rng.standard_normal((N, 4)).astype(np.float32))
-    us = jnp.asarray(0.1 * rng.standard_normal((N, T, 1)).astype(np.float32))
-    xs = jax.vmap(lambda x0, u: rollout_nonlinear(cartpole_step, x0, u))(x0s, us)
-    As, Bs = jax.vmap(lambda x, u: linearize_trajectory(cartpole_step, x, u))(xs, us)
-    ks_ref, Ks_ref = jax.vmap(
-        lambda A, B, x, u: _backward_pass(A, B, x, u, Q, R, QF, x_goal, 1e-3)
-    )(As, Bs, xs, us)
-    lxs = 2.0 * (xs[:, :T] - x_goal) @ Q.T
-    lus = 2.0 * us @ R.T
-    lxT = 2.0 * (xs[:, T] - x_goal) @ QF.T
-    ks_f, Ks_f = ilqr_backward_fused(As, Bs, lxs, lus, 2 * Q, 2 * R, lxT,
-                                     2 * QF, reg=1e-3, tile_b=128, interpret=True)
-    np.testing.assert_allclose(np.asarray(ks_f), np.asarray(ks_ref),
-                               rtol=1e-3, atol=1e-4)
-    np.testing.assert_allclose(np.asarray(Ks_f), np.asarray(Ks_ref),
-                               rtol=1e-3, atol=1e-4)
-
-
-def test_ilqr_batched_fused_backend_matches_vmap():
-    from numpower_tpu.models import cartpole_step, ilqr_solve_batched
-
-    Q = jnp.eye(4); R = jnp.eye(1) * 0.01; QF = jnp.eye(4) * 10.0
-    x_goal = jnp.zeros(4)
-    rng = np.random.default_rng(1)
-    x0s = jnp.asarray(0.3 * rng.standard_normal((3, 4)).astype(np.float32))
-    r1 = ilqr_solve_batched(cartpole_step, x0s, Q, R, QF, x_goal, 15, iters=6)
-    r2 = ilqr_solve_batched(cartpole_step, x0s, Q, R, QF, x_goal, 15, iters=6,
-                            backend="fused", interpret=True)
-    np.testing.assert_allclose(np.asarray(r2.cost), np.asarray(r1.cost),
-                               rtol=1e-2, atol=1e-3)
-
-
 def test_fista_mpc_fused_g_matches_two_step(qp_and_g):
-    from numpower_tpu.kernels.boxqp_fista import fista_mpc_pallas
-
-    qp, g = qp_and_g
-    rng = np.random.default_rng(0)
-    x0s = jnp.asarray(0.3 * rng.standard_normal((24, 12)).astype(np.float32))
-    U_ref = fista_boxqp_pallas(
-        qp.H, g, jnp.float32(-0.5), jnp.float32(0.5), qp.lipschitz,
-        iters=50, coarse_iters=0, tile_n=16, interpret=True,
-    )
-    U_fused, g_out = fista_mpc_pallas(
-        qp.H, qp.Sx.T, qp.SuTQ.T, x0s, jnp.float32(-0.5), jnp.float32(0.5),
-        qp.lipschitz, iters=50, coarse_iters=0, tile_n=16, interpret=True,
-    )
-    np.testing.assert_allclose(np.asarray(U_fused), np.asarray(U_ref),
-                               rtol=1e-4, atol=1e-5)
-    np.testing.assert_allclose(np.asarray(g_out), np.asarray(g),
-                               rtol=1e-4, atol=1e-4)
-
-
-def test_admm_zy_form_matches_s_form(qp_and_g):
-    """The (z,y)-form kernel body (kept for the reproducible bench A/B,
-    bench.py --ab-admm) is algebraically identical to the s-form — same
-    solution and residuals to fp32 round-off at the mixed schedule."""
-    from numpower_tpu.kernels.boxqp_admm import admm_mpc_pallas_res
-
-    qp, _ = qp_and_g
-    rng = np.random.default_rng(3)
-    x0s = jnp.asarray(0.3 * rng.standard_normal((24, 12)).astype(np.float32))
-    rho = jnp.sqrt(qp.lipschitz * jnp.maximum(qp.mu, 1e-12))
-    args = (qp.H, qp.Sx.T, qp.SuTQ.T, x0s, jnp.float32(-0.5),
-            jnp.float32(0.5), rho)
-    z_s, rp_s, rd_s = admm_mpc_pallas_res(*args, iters=40, coarse_iters=20,
-                                          tile_n=16, interpret=True)
-    z_zy, rp_zy, rd_zy = admm_mpc_pallas_res(*args, iters=40, coarse_iters=20,
-                                             tile_n=16, interpret=True,
-                                             form="zy")
-    np.testing.assert_allclose(np.asarray(z_zy), np.asarray(z_s),
-                               rtol=1e-4, atol=5e-5)
-    np.testing.assert_allclose(float(rp_zy), float(rp_s), atol=5e-5)
-    np.testing.assert_allclose(float(rd_zy), float(rd_s), atol=5e-5)
+    """g formed in the kernel from x0 (and the x_ref bias row) == the XLA
+    scan on the materialized g."""
+    qp, _, x0s = qp_and_g
+    x_ref = jnp.linspace(-0.2, 0.2, 12)
+    g = gradient_offset(qp, x0s, x_ref)
+    ref = solve_boxqp_fista(qp.H, g, -0.5, 0.5, L=qp.lipschitz, iters=300)
+    U, _ = _fista(qp, x0s, -0.5, 0.5, 300, x_ref=x_ref)
+    np.testing.assert_allclose(np.asarray(U), np.asarray(ref.U), rtol=1e-4,
+                               atol=2e-5)
 
 
 def test_fista_fused_res_warm_start(qp_and_g):
-    """Round 3: the fully-fused res kernel accepts a warm start — from the
-    converged solution, a few iterations stay put (the serving tick path)."""
-    from numpower_tpu.kernels.boxqp_fista import fista_mpc_pallas_res
-
-    qp, _ = qp_and_g
-    rng = np.random.default_rng(5)
-    x0s = jnp.asarray(0.3 * rng.standard_normal((24, 12)).astype(np.float32))
-    args = (qp.H, qp.Sx.T, qp.SuTQ.T, x0s, jnp.float32(-0.5),
-            jnp.float32(0.5), qp.lipschitz)
-    U_star, _ = fista_mpc_pallas_res(*args, iters=300, coarse_iters=0,
-                                     tile_n=16, interpret=True)
-    U_warm, resid = fista_mpc_pallas_res(*args, iters=5, coarse_iters=0,
-                                         tile_n=16, interpret=True, U0=U_star)
+    """The kernel's per-row residual, reduced outside, is small at the
+    converged solution and a warm-started solve stays there."""
+    qp, _, x0s = qp_and_g
+    U_star, _ = _fista(qp, x0s, -0.5, 0.5, 300)
+    U_warm, resid = _fista(qp, x0s, -0.5, 0.5, 5, U0=U_star)
     np.testing.assert_allclose(np.asarray(U_warm), np.asarray(U_star),
                                rtol=1e-4, atol=1e-5)
     assert float(resid) < 1e-3
 
 
 def test_admm_fused_res_warm_start(qp_and_g):
-    """Same warm-start contract for the fused ADMM res kernel (ADMM mesh
-    serving path, models/mpc.MPCController(solver='admm'))."""
-    from numpower_tpu.kernels.boxqp_admm import admm_mpc_pallas_res
-
-    qp, _ = qp_and_g
-    rng = np.random.default_rng(6)
-    x0s = jnp.asarray(0.3 * rng.standard_normal((24, 12)).astype(np.float32))
-    rho = jnp.sqrt(qp.lipschitz * jnp.maximum(qp.mu, 1e-12))
-    args = (qp.H, qp.Sx.T, qp.SuTQ.T, x0s, jnp.float32(-0.5),
-            jnp.float32(0.5), rho)
-    z_star, _, _ = admm_mpc_pallas_res(*args, iters=300, coarse_iters=0,
-                                       tile_n=16, interpret=True)
-    z_warm, rp, _ = admm_mpc_pallas_res(*args, iters=10, coarse_iters=0,
-                                        tile_n=16, interpret=True, U0=z_star)
+    """Same warm-start contract for the ADMM kernel (the ADMM serving
+    path, models/mpc.MPCController(solver='admm'))."""
+    qp, _, x0s = qp_and_g
+    z_star, _, _ = _admm(qp, x0s, -0.5, 0.5, 300)
+    z_warm, rp, _ = _admm(qp, x0s, -0.5, 0.5, 10, U0=z_star)
     np.testing.assert_allclose(np.asarray(z_warm), np.asarray(z_star),
                                rtol=1e-4, atol=5e-5)
     assert float(rp) < 1e-3
 
 
-def test_flops_mfu_model():
-    """utils/flops.py invariants: logical <= padded <= weighted, the
-    documented d=120->128 iteration-GEMM padding ratio, and MFU algebra."""
-    from numpower_tpu.utils.flops import (
-        admm_mpc_cost, fista_mpc_cost, mfu_report, peak_tflops,
-    )
+def test_admm_kernel_residuals_match_xla(qp_and_g):
+    qp, _, x0s = qp_and_g
+    z, rp, rd = _admm(qp, x0s, -0.5, 0.5, 60)
+    ref = solve_mpc_boxqp_admm(qp, x0s, -0.5, 0.5, iters=60, method="xla")
+    np.testing.assert_allclose(np.asarray(z), np.asarray(ref.U), atol=2e-5)
+    np.testing.assert_allclose(float(rp), float(ref.primal_residual),
+                               atol=2e-5)
+    np.testing.assert_allclose(float(rd), float(ref.dual_residual),
+                               atol=2e-5)
 
-    c = fista_mpc_cost(N=4096, n=12, d=120, iters=40, coarse_iters=27)
-    assert c.flops_logical < c.flops_padded < c.flops_weighted
-    # iteration GEMMs alone pad (120/128)^2 -> 12.1%; the g GEMM's n=12->128
-    # padding pushes the aggregate a little higher
+
+def test_flops_mfu_model():
+    """utils/flops.py invariants: logical <= padded, the d=120->128 tile
+    padding, the coarse/tail split and the MFU algebra."""
+    from numpower_tpu.utils.flops import PEAKS, mfu_report, qp_kernel_cost
+
+    h100 = PEAKS["NVIDIA H100 80GB HBM3"]
+    c = qp_kernel_cost(N=4096, n=12, d=120, iters=40, coarse_iters=27)
+    assert c.flops_logical < c.flops_padded
+    assert c.flops_bf16 + c.flops_fp32 == pytest.approx(c.flops_padded)
     assert 0.10 < c.padding_waste < 0.25
-    # MFU algebra: measured == SoL -> MFU 1
-    assert abs(c.mfu(c.sol_seconds(197.0), 197.0) - 1.0) < 1e-12
-    a = admm_mpc_cost(N=4096, n=12, d=120, iters=40, coarse_iters=32)
-    # ADMM's schedule has more coarse iterations -> fewer weighted passes
-    assert a.flops_weighted < c.flops_weighted
-    # report renders without a TPU (peak None) and with a peak
+    assert abs(c.mfu(c.sol_seconds(h100), h100) - 1.0) < 1e-12
+    a = qp_kernel_cost(N=4096, n=12, d=120, iters=40, coarse_iters=32)
+    # more coarse iterations -> a shorter tensor-core speed of light
+    assert a.sol_seconds(h100) < c.sol_seconds(h100)
     assert "MFU n/a" in mfu_report("x", c, 60e-6, None)
-    assert "MFU" in mfu_report("x", c, 60e-6, 197.0)
-    assert peak_tflops.__doc__  # importable API
+    assert "MFU" in mfu_report("x", c, 60e-6, h100)
 
 
 def test_fista_fused_long_horizon_envelope():
-    """Round 3: the folded prediction chain removed the T*n <= 1024 VMEM
-    bound on the fully-fused path — a horizon-100 quadrotor QP (Tn = 1200,
-    d = 400) now runs fused and matches the XLA scan."""
-    from numpower_tpu.models import condense, quadrotor12
-    from numpower_tpu.models.boxqp import solve_mpc_boxqp
-    from numpower_tpu.kernels.boxqp_fista import fista_mpc_pallas_res
-
-    A, B = quadrotor12(0.02)
-    qp = condense(A, B, jnp.eye(12), jnp.eye(4) * 0.1, jnp.eye(12) * 5.0, 100)
-    assert qp.Sx.shape[0] == 1200  # the shape the old bound rejected
-    rng = np.random.default_rng(8)
-    x0s = jnp.asarray(0.2 * rng.standard_normal((16, 12)).astype(np.float32))
-    ref = solve_mpc_boxqp(qp, x0s, -0.5, 0.5, iters=50, method="fista",
-                          coarse_iters=0)
-    U, resid = fista_mpc_pallas_res(
-        qp.H, qp.Sx.T, qp.SuTQ.T, x0s, jnp.float32(-0.5), jnp.float32(0.5),
-        qp.lipschitz, iters=50, coarse_iters=0, tile_n=16, interpret=True)
-    # 1e-4: the framework parity bound — at d=400/Tn=1200 the folded-chain
-    # vs two-GEMM g formation differ by fp32 accumulation order
-    np.testing.assert_allclose(np.asarray(U), np.asarray(ref.U),
-                               rtol=1e-4, atol=1e-4)
-    np.testing.assert_allclose(float(resid), float(ref.residual), atol=1e-4)
+    """A horizon-100 quadrotor QP (d = 400) is outside the kernels' tiles:
+    "auto" takes the XLA scan and an explicit kernel request refuses."""
+    qp = _quad_qp(100)
+    assert not kernels.fits(qp.H.shape[0], qp.n)
+    x0s = jnp.zeros((4, 12), jnp.float32)
+    res = solve_mpc_boxqp(qp, x0s, -0.5, 0.5, iters=5, method="auto")
+    assert res.U.shape == (4, 400)
+    with pytest.raises(ValueError, match="envelope"):
+        solve_mpc_boxqp(qp, x0s, -0.5, 0.5, iters=5, method="pallas",
+                        interpret=True)
 
 
-def test_kalman_mean_pallas_matches_xla():
-    """Fused whole-T mean-pass kernel (kernels/kalman_batched.py) vs the
-    XLA scan path of kalman_filter_batched — means, predictions, and the
-    innovation log-likelihood (r4 verdict #5 experiment)."""
-    from numpower_tpu.models.estimation import kalman_filter_batched
+# --- parity of both kernels with the fp64 optimum --------------------------
 
-    rng = np.random.default_rng(4)
-    A = jnp.asarray([[1.0, 0.1], [0.0, 1.0]])
-    C = jnp.asarray([[1.0, 0.0]])
-    Q = jnp.eye(2) * 1e-3
-    R = jnp.eye(1) * 1e-2
-    P0 = jnp.eye(2) * 0.1
-    N, T = 192, 23                      # non-multiple of the 128-lane tile
-    yss = jnp.asarray(rng.standard_normal((N, T, 1)).astype(np.float32))
-    x0s = jnp.asarray(rng.standard_normal((N, 2)).astype(np.float32))
-    B = jnp.asarray([[0.005, 0.01], [0.1, 0.05]])
-    uss = jnp.asarray(rng.standard_normal((N, T, 2)).astype(np.float32))
-    for kw in ({}, {"B": B, "uss": uss}):
-        ref = kalman_filter_batched(A, C, Q, R, x0s, P0, yss,
-                                    method="xla", **kw)
-        pk = kalman_filter_batched(A, C, Q, R, x0s, P0, yss,
-                                   method="pallas", **kw)
-        np.testing.assert_allclose(np.asarray(pk.means),
-                                   np.asarray(ref.means), atol=2e-5)
-        np.testing.assert_allclose(np.asarray(pk.pred_means),
-                                   np.asarray(ref.pred_means), atol=2e-5)
-        np.testing.assert_allclose(np.asarray(pk.log_likelihood),
-                                   np.asarray(ref.log_likelihood),
-                                   rtol=2e-4, atol=2e-3)
+_REF_CACHE = {}
 
 
-def test_pf_resample_pallas_matches_onehot():
-    """kernels/pf_resample.py fused mask+contraction == the XLA one-hot
-    formulation, element-exact, incl. degenerate weight spikes."""
-    from numpower_tpu.kernels.pf_resample import resample_onehot_pallas
-    from numpower_tpu.models.particle import (
-        _resample_slots, _systematic_resample,
-    )
-
-    rng = np.random.default_rng(7)
-    B, N, n = 3, 256, 5
-    parts = jnp.asarray(rng.standard_normal((B, N, n)).astype(np.float32))
-    logw = jnp.asarray(rng.standard_normal((B, N)).astype(np.float32))
-    # one trajectory with a near-degenerate weight spike
-    logw = logw.at[1, 17].set(25.0)
-    keys = jax.random.split(jax.random.key(5), B)
-    m = jax.vmap(lambda k, lw: _resample_slots(k, lw, N))(keys, logw)
-    out = resample_onehot_pallas(parts, m, blk=128, interpret=True)
-    ref = jax.vmap(lambda k, p, lw: _systematic_resample(
-        k, p, lw, method="onehot")[0])(keys, parts, logw)
-    np.testing.assert_array_equal(np.asarray(out), np.asarray(ref))
+def _fp64_case(N, T):
+    """(qp, x0s, U*) for the quadrotor at horizon T: U* from the plain fp64
+    reference of chip_smoke.py."""
+    if (N, T) not in _REF_CACHE:
+        qp = _quad_qp(T)
+        x0 = (0.3 * np.random.default_rng(N + T).standard_normal((N, 12))
+              ).astype(np.float32)
+        A, B = quadrotor_plant()
+        H, G = condense_ref(A, B, *flagship_costs(), T)
+        _REF_CACHE[(N, T)] = (qp, jnp.asarray(x0),
+                              boxqp_ref(H, x0.astype(np.float64) @ G, -1.0,
+                                        1.0))
+    return _REF_CACHE[(N, T)]
 
 
-def test_ukf_pallas_matches_vmap():
-    """Whole-T batched UKF kernel (kernels/ukf.py) vs the vmapped XLA
-    filter — means, covariances, predictions, log-likelihood, with a
-    nonlinear pendulum plant and known inputs."""
-    from numpower_tpu.models.estimation import ukf_filter_batched
-
-    def f_pend(x, u):
-        th, om = x[0], x[1]
-        return jnp.stack(
-            [th + 0.05 * om, om - 0.05 * 9.81 * jnp.sin(th) + 0.05 * u[0]])
-
-    def h_pend(x):
-        return x[:1]
-
-    rng = np.random.default_rng(2)
-    B, T = 7, 20                        # non-multiple of the 128-lane tile
-    Q = jnp.eye(2) * 1e-3
-    R = jnp.eye(1) * 1e-2
-    P0 = jnp.eye(2) * 0.1
-    ys = jnp.asarray(rng.standard_normal((B, T, 1)).astype(np.float32))
-    us = jnp.asarray(0.1 * rng.standard_normal((B, T, 1)).astype(np.float32))
-    x0s = jnp.asarray(0.3 * rng.standard_normal((B, 2)).astype(np.float32))
-    ref = ukf_filter_batched(f_pend, h_pend, Q, R, x0s, P0, ys, us,
-                             method="xla")
-    pk = ukf_filter_batched(f_pend, h_pend, Q, R, x0s, P0, ys, us,
-                            method="pallas")
-    np.testing.assert_allclose(np.asarray(pk.means), np.asarray(ref.means),
-                               atol=1e-4)
-    np.testing.assert_allclose(np.asarray(pk.covs), np.asarray(ref.covs),
-                               atol=1e-5)
-    np.testing.assert_allclose(np.asarray(pk.pred_means),
-                               np.asarray(ref.pred_means), atol=1e-4)
-    np.testing.assert_allclose(np.asarray(pk.log_likelihood),
-                               np.asarray(ref.log_likelihood), rtol=1e-3,
-                               atol=5e-3)
+@pytest.mark.parametrize("kernel", ["fista", "admm"])
+@pytest.mark.parametrize("N", [1, 37, 200])
+@pytest.mark.parametrize("T", [2, 30])                  # d = 8 and d = 120
+@pytest.mark.parametrize("warm", [False, True])
+@pytest.mark.parametrize("coarse", [True, False])
+def test_qp_kernel_matches_fp64_reference(kernel, N, T, warm, coarse):
+    qp, x0s, U_star = _fp64_case(N, T)
+    iters = 40
+    U0 = None
+    if warm:
+        # the shifted plan a serving tick passes: right values, one stage off
+        m = qp.m
+        U0 = jnp.asarray(np.concatenate([U_star[:, m:], U_star[:, -m:]], 1),
+                         jnp.float32)
+    if kernel == "fista":
+        ci = default_coarse_iters(qp, iters) if coarse else 0
+        U, resid = _fista(qp, x0s, -1.0, 1.0, iters, ci, U0)
+    else:
+        ci = admm_coarse_iters(qp, iters) if coarse else 0
+        U, resid, _ = _admm(qp, x0s, -1.0, 1.0, iters, ci, U0)
+    assert U.shape == (N, 4 * T)
+    assert float(np.max(np.abs(np.asarray(U, np.float64) - U_star))) <= 1e-4
+    assert float(resid) < 1e-3
 
 
-def test_ukf_pallas_multi_obs_dims():
-    """p=2 observations, n=3 states, m=2 inputs: exercises the kernel's
-    p-indexed forward/backward substitutions and cross-covariance loops
-    that the pendulum case (p=1) reduces to scalar divisions."""
-    from numpower_tpu.models.estimation import ukf_filter_batched
+# --- on the card ------------------------------------------------------------
 
-    def f3(x, u):
-        return jnp.stack([
-            x[0] + 0.1 * x[1],
-            x[1] + 0.1 * x[2] + 0.05 * u[0],
-            0.95 * x[2] + 0.1 * jnp.tanh(x[0]) + 0.05 * u[1],
-        ])
-
-    def h3(x):
-        return jnp.stack([x[0], x[1] + 0.5 * x[2]])
-
-    rng = np.random.default_rng(9)
-    B, T = 6, 15
-    Q = jnp.eye(3) * 1e-3
-    R = jnp.eye(2) * 1e-2
-    P0 = jnp.eye(3) * 0.2
-    ys = jnp.asarray(rng.standard_normal((B, T, 2)).astype(np.float32))
-    us = jnp.asarray(0.1 * rng.standard_normal((B, T, 2)).astype(np.float32))
-    x0s = jnp.asarray(0.3 * rng.standard_normal((B, 3)).astype(np.float32))
-    ref = ukf_filter_batched(f3, h3, Q, R, x0s, P0, ys, us, method="xla")
-    pk = ukf_filter_batched(f3, h3, Q, R, x0s, P0, ys, us, method="pallas")
-    np.testing.assert_allclose(np.asarray(pk.means), np.asarray(ref.means),
-                               atol=1e-4)
-    np.testing.assert_allclose(np.asarray(pk.covs), np.asarray(ref.covs),
-                               atol=1e-5)
-    np.testing.assert_allclose(np.asarray(pk.log_likelihood),
-                               np.asarray(ref.log_likelihood), rtol=1e-3,
-                               atol=5e-3)
+@pytest.mark.gpu
+@pytest.mark.parametrize("kernel", ["fista", "admm"])
+def test_compiled_kernel_matches_fp64_on_gpu(kernel):
+    """The compiled Triton kernels (no interpreter) at the flagship width."""
+    qp, x0s, U_star = _fp64_case(200, 30)
+    solve = solve_mpc_boxqp if kernel == "fista" else solve_mpc_boxqp_admm
+    U = solve(qp, x0s, -1.0, 1.0, iters=40, method="pallas").U
+    assert float(np.max(np.abs(np.asarray(U, np.float64) - U_star))) <= 1e-4
 
 
-def test_ekf_pallas_matches_vmap():
-    """Whole-T batched EKF kernel (kernels/ekf.py, in-kernel jvp
-    Jacobians) vs the vmapped XLA filter."""
-    from numpower_tpu.models.estimation import ekf_filter_batched
-
-    def f_pend(x, u):
-        th, om = x[0], x[1]
-        return jnp.stack(
-            [th + 0.05 * om, om - 0.05 * 9.81 * jnp.sin(th) + 0.05 * u[0]])
-
-    def h_pend(x):
-        return x[:1]
-
-    rng = np.random.default_rng(3)
-    B, T = 7, 20
-    Q = jnp.eye(2) * 1e-3
-    R = jnp.eye(1) * 1e-2
-    P0 = jnp.eye(2) * 0.1
-    ys = jnp.asarray(rng.standard_normal((B, T, 1)).astype(np.float32))
-    us = jnp.asarray(0.1 * rng.standard_normal((B, T, 1)).astype(np.float32))
-    x0s = jnp.asarray(0.3 * rng.standard_normal((B, 2)).astype(np.float32))
-    ref = ekf_filter_batched(f_pend, h_pend, Q, R, x0s, P0, ys, us,
-                             method="xla")
-    pk = ekf_filter_batched(f_pend, h_pend, Q, R, x0s, P0, ys, us,
-                            method="pallas")
-    np.testing.assert_allclose(np.asarray(pk.means), np.asarray(ref.means),
-                               atol=1e-4)
-    np.testing.assert_allclose(np.asarray(pk.covs), np.asarray(ref.covs),
-                               atol=1e-5)
-    np.testing.assert_allclose(np.asarray(pk.pred_means),
-                               np.asarray(ref.pred_means), atol=1e-4)
-    np.testing.assert_allclose(np.asarray(pk.log_likelihood),
-                               np.asarray(ref.log_likelihood), rtol=1e-3,
-                               atol=5e-3)
-
-
-def test_ekf_pallas_multi_obs_dims():
-    from numpower_tpu.models.estimation import ekf_filter_batched
-
-    def f3(x, u):
-        return jnp.stack([
-            x[0] + 0.1 * x[1],
-            x[1] + 0.1 * x[2] + 0.05 * u[0],
-            0.95 * x[2] + 0.1 * jnp.tanh(x[0]) + 0.05 * u[1],
-        ])
-
-    def h3(x):
-        return jnp.stack([x[0], x[1] + 0.5 * x[2]])
-
-    rng = np.random.default_rng(10)
-    B, T = 6, 15
-    Q = jnp.eye(3) * 1e-3
-    R = jnp.eye(2) * 1e-2
-    P0 = jnp.eye(3) * 0.2
-    ys = jnp.asarray(rng.standard_normal((B, T, 2)).astype(np.float32))
-    us = jnp.asarray(0.1 * rng.standard_normal((B, T, 2)).astype(np.float32))
-    x0s = jnp.asarray(0.3 * rng.standard_normal((B, 3)).astype(np.float32))
-    ref = ekf_filter_batched(f3, h3, Q, R, x0s, P0, ys, us, method="xla")
-    pk = ekf_filter_batched(f3, h3, Q, R, x0s, P0, ys, us, method="pallas")
-    np.testing.assert_allclose(np.asarray(pk.means), np.asarray(ref.means),
-                               atol=1e-4)
-    np.testing.assert_allclose(np.asarray(pk.covs), np.asarray(ref.covs),
-                               atol=1e-5)
-    np.testing.assert_allclose(np.asarray(pk.log_likelihood),
-                               np.asarray(ref.log_likelihood), rtol=1e-3,
-                               atol=5e-3)
-
-
-def test_mppi_pallas_matches_xla():
-    """Fused whole-solve MPPI kernel (kernels/mppi.py): exact same key
-    stream as the vmapped XLA path, so results match to fp-reassociation
-    tolerance — unbounded and box-bounded, non-multiple-of-SC scenario
-    counts (pad path), warm start."""
-    from numpower_tpu.models import (
-        mppi_solve_batched, pendulum_step, quadratic_mppi_cost,
-    )
-
-    Qp = jnp.diag(jnp.array([1.0, 0.1]))
-    Rp = jnp.eye(1) * 0.01
-    QFp = jnp.diag(jnp.array([100.0, 10.0]))
-    cost = quadratic_mppi_cost(Qp, Rp, QFp, jnp.zeros(2))
-    assert hasattr(cost, "rows")
-    rng = np.random.default_rng(8)
-    x0s = jnp.asarray(rng.uniform(-np.pi, np.pi, (6, 2)), jnp.float32)
-    key = jax.random.key(3)
-    us0 = jnp.asarray(0.1 * rng.standard_normal((12, 1)), jnp.float32)
-    for kw in (
-        dict(samples=128, iters=4, m=1),
-        dict(samples=128, iters=3, m=1, u_lo=-2.0, u_hi=2.0, sigma=0.7,
-             lam=0.5),
-        dict(samples=128, iters=2, us_init=us0),
-    ):
-        ref = mppi_solve_batched(pendulum_step, x0s, cost, 12, key,
-                                 method="xla", **kw)
-        pal = mppi_solve_batched(pendulum_step, x0s, cost, 12, key,
-                                 method="pallas", **kw)
-        np.testing.assert_allclose(np.asarray(pal.us), np.asarray(ref.us),
-                                   atol=5e-4)
-        np.testing.assert_allclose(np.asarray(pal.ess),
-                                   np.asarray(ref.ess), rtol=1e-3)
-        np.testing.assert_allclose(np.asarray(pal.cost),
-                                   np.asarray(ref.cost), rtol=1e-4)
-
-
-def test_mppi_pallas_eligibility():
-    """Ineligible configs must raise on explicit method='pallas' and fall
-    back silently on 'auto'."""
-    from numpower_tpu.models import (
-        mppi_solve_batched, pendulum_step, quadratic_mppi_cost,
-    )
-
-    cost = quadratic_mppi_cost(jnp.eye(2), jnp.eye(1), jnp.eye(2),
-                               jnp.zeros(2))
-    x0s = jnp.zeros((2, 2))
-    key = jax.random.key(0)
-    with pytest.raises(ValueError):
-        mppi_solve_batched(pendulum_step, x0s, cost, 8, key,
-                           method="pallas", samples=100, m=1)
-    # auto falls back to xla (samples not lane-aligned) and still solves
-    r = mppi_solve_batched(pendulum_step, x0s, cost, 8, key,
-                           method="auto", samples=100, iters=2, m=1)
-    assert bool(jnp.all(jnp.isfinite(r.us)))
-
-
-def test_ilqr_forward_pallas_matches_xla():
-    """Fused forward line-search kernel (kernels/ilqr_forward.py) inside
-    the fused batched iLQR vs the vmapped-scan forward — same alphas,
-    same selection, full solve parity."""
-    from numpower_tpu.models import cartpole_step, ilqr_solve_batched
-
-    n = 4
-    Q = jnp.diag(jnp.asarray([1.0, 0.1, 10.0, 0.1], jnp.float32))
-    R = jnp.eye(1, dtype=jnp.float32) * 0.05
-    QF = Q * 10.0
-    x_goal = jnp.asarray([0.0, 0.0, np.pi, 0.0], jnp.float32)
-    rng = np.random.default_rng(4)
-    x0s = jnp.asarray(0.1 * rng.standard_normal((8, n)).astype(np.float32))
-    kw = dict(iters=4, interpret=True)
-    r_x = ilqr_solve_batched(cartpole_step, x0s, Q, R, QF, x_goal, 16,
-                             backend="fused", forward="xla", **kw)
-    r_p = ilqr_solve_batched(cartpole_step, x0s, Q, R, QF, x_goal, 16,
-                             backend="fused", forward="pallas", **kw)
-    np.testing.assert_allclose(np.asarray(r_p.us), np.asarray(r_x.us),
-                               atol=1e-4)
-    np.testing.assert_allclose(np.asarray(r_p.cost), np.asarray(r_x.cost),
-                               rtol=1e-5)
-    np.testing.assert_allclose(np.asarray(r_p.xs), np.asarray(r_x.xs),
-                               atol=1e-4)
-
-
-def test_al_ilqr_forward_pallas_matches_xla():
-    """AL-iLQR with the fused forward kernel: objective parity (controls
-    may differ at near-tied line-search branches — documented in
-    al_ilqr_solve_batched)."""
-    from numpower_tpu.models import al_ilqr_solve_batched, pendulum_step
-
-    Qp = jnp.diag(jnp.array([1.0, 0.1]))
-    Rp = jnp.eye(1) * 0.01
-    QFp = jnp.diag(jnp.array([100.0, 10.0]))
-    rng = np.random.default_rng(8)
-    x0s = jnp.asarray(rng.uniform(-np.pi, np.pi, (8, 2)), jnp.float32)
-    kw = dict(al_iters=3, ilqr_iters=4, interpret=True)
-    r_x = al_ilqr_solve_batched(pendulum_step, x0s, Qp, Rp, QFp,
-                                jnp.zeros(2), 16, -2.0, 2.0,
-                                backend="fused", forward="xla", **kw)
-    r_p = al_ilqr_solve_batched(pendulum_step, x0s, Qp, Rp, QFp,
-                                jnp.zeros(2), 16, -2.0, 2.0,
-                                backend="fused", forward="pallas", **kw)
-    np.testing.assert_allclose(np.asarray(r_p.cost), np.asarray(r_x.cost),
-                               rtol=1e-4)
-    np.testing.assert_allclose(np.asarray(r_p.us), np.asarray(r_x.us),
-                               atol=5e-3)
-    # residual violation is an AL-convergence property (3 outer iters),
-    # not a kernel property — require both methods to agree on it
-    np.testing.assert_allclose(np.asarray(r_p.max_violation),
-                               np.asarray(r_x.max_violation), atol=5e-3)
+@pytest.mark.gpu
+def test_auto_route_lowers_to_triton_on_gpu():
+    qp, x0s, _ = _fp64_case(200, 30)
+    lowered = jax.jit(lambda x: solve_mpc_boxqp(qp, x, -1.0, 1.0,
+                                                iters=40).U).lower(x0s)
+    assert "__gpu$xla.gpu.triton" in lowered.as_text()
+    assert "triton" in lowered.compile().as_text().lower()

@@ -288,7 +288,7 @@ def test_riccati_per_scenario_matches_vmapped(quad):
     As = jnp.asarray(np.tile(np.asarray(A), (N, 1, 1))
                      + 0.01 * rng.standard_normal((N, 12, 12)).astype(np.float32))
     Bs = jnp.broadcast_to(jnp.asarray(B), (N, 12, 4))
-    Ks, P0 = riccati_scan_per_scenario(As, Bs, Q, R, QF, 20, method="xla")
+    Ks, P0 = riccati_scan_per_scenario(As, Bs, Q, R, QF, 20)
     assert Ks.shape == (N, 20, 4, 12)
     # scenario i must match the single-system scan on (As[i], Bs[i])
     for i in [0, 3]:
@@ -297,28 +297,6 @@ def test_riccati_per_scenario_matches_vmapped(quad):
                                    rtol=2e-3, atol=2e-4)
         np.testing.assert_allclose(np.asarray(P0[i]), np.asarray(Ps_ref[0]),
                                    rtol=2e-3, atol=2e-3)
-
-
-def test_riccati_per_scenario_pallas_interpret(quad):
-    # pallas path via interpret-mode kernels (CPU)
-    from numpower_tpu.kernels.cholesky import psd_solve_batched
-    from numpower_tpu.models import riccati_scan_per_scenario
-
-    A, B = quad
-    Q = jnp.eye(12); R = jnp.eye(4) * 0.1; QF = jnp.eye(12) * 5.0
-    N = 4
-    As = jnp.broadcast_to(jnp.asarray(A), (N, 12, 12))
-    Bs = jnp.broadcast_to(jnp.asarray(B), (N, 12, 4))
-    # spot-check the kernel the pallas path uses, in interpret mode
-    rng = np.random.default_rng(6)
-    a = rng.standard_normal((N, 4, 4)).astype(np.float32)
-    spd = jnp.asarray(a @ a.transpose(0, 2, 1) + 3 * np.eye(4, dtype=np.float32))
-    rhs = jnp.asarray(rng.standard_normal((N, 4, 12)).astype(np.float32))
-    X = psd_solve_batched(spd, rhs, tile_b=128, interpret=True)
-    np.testing.assert_allclose(
-        np.asarray(jnp.einsum("nij,njk->nik", spd, X)), np.asarray(rhs),
-        rtol=2e-3, atol=2e-3,
-    )
 
 
 def test_lqt_tracking_matches_condensed_solve(di):

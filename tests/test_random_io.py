@@ -143,7 +143,7 @@ def test_set_device_selects_accelerator(monkeypatch):
         def __init__(self, platform, i):
             self.platform, self.id = platform, i
 
-    devs = [FakeDev("cpu", 0), FakeDev("tpu", 1), FakeDev("tpu", 2)]
+    devs = [FakeDev("cpu", 0), FakeDev("gpu", 1), FakeDev("gpu", 2)]
     monkeypatch.setattr(nda.jax, "devices", lambda *a: devs)
     try:
         nda.NDArray.setDevice(1)

@@ -231,85 +231,54 @@ def test_state_constraints_actually_bind(di):
 
 
 def test_admm_pallas_kernel_matches_xla(quad):
-    """Fused Pallas ADMM (interpret mode on CPU) must match the XLA scan
-    solver iterate-for-iterate (same algorithm, same static schedule)."""
-    from numpower_tpu.kernels.boxqp_admm import admm_boxqp_pallas
-
+    """Fused ADMM kernel (Pallas interpreter on CPU) must match the XLA scan
+    solver iterate-for-iterate (same algorithm, same static schedule) and
+    land on the exact optimum; a warm start from its answer stays there."""
     A, B = quad
     qp = condense(A, B, jnp.eye(12), jnp.eye(4) * 0.1, jnp.eye(12) * 5.0, 10)
     rng = np.random.default_rng(13)
     x0s = jnp.asarray(rng.standard_normal((6, 12)).astype(np.float32))
     g = gradient_offset(qp, x0s)
-    rho = jnp.sqrt(qp.lipschitz * qp.mu)
-    z, y = admm_boxqp_pallas(qp.H, g, jnp.float32(-0.5), jnp.float32(0.5),
-                             rho, iters=60, tile_n=8, interpret=True)
-    ref = solve_boxqp_admm(qp.H, g, -0.5, 0.5, rho=rho, iters=60)
-    # interpret mode always executes on the HOST; when the active backend
-    # is TPU the reference scan runs on-chip, and 60 cross-backend-rounded
-    # ADMM iterations drift to ~2e-3 (scripts/tpu_suite.sh) — both still
-    # land on the optimum (checked below vs the exact solution either way)
-    kernel_tol = 1e-4 if jax.default_backend() == "cpu" else 5e-3
+    kw = dict(iters=60, method="pallas", interpret=True, coarse_iters=0)
+    z = solve_mpc_boxqp_admm(qp, x0s, -0.5, 0.5, **kw).U
+    ref = solve_mpc_boxqp_admm(qp, x0s, -0.5, 0.5, iters=60, method="xla")
     np.testing.assert_allclose(np.asarray(z), np.asarray(ref.U),
-                               rtol=kernel_tol, atol=kernel_tol / 10)
-    # dual output consistency: exact residuals recomputed from (z, y) match
-    # the ground-truth optimum within solver tolerance
+                               rtol=1e-4, atol=1e-5)
     U_ref = np.stack([_np_boxqp_exact(qp.H, np.asarray(g)[i], -0.5, 0.5)
                       for i in range(6)])
-    # 60 iterations land ~1e-3 from the exact optimum; with a TPU-computed
-    # qp/g feeding the host-interpret kernel the residual reads 2.3e-3
-    # (cross-backend condense rounding) — bound per backend
-    opt_tol = 2e-3 if jax.default_backend() == "cpu" else 4e-3
-    np.testing.assert_allclose(np.asarray(z), U_ref, rtol=opt_tol,
-                               atol=opt_tol / 4)
-    # warm start path (same cross-backend drift class as above)
-    z2, _ = admm_boxqp_pallas(qp.H, g, jnp.float32(-0.5), jnp.float32(0.5),
-                              rho, iters=30, tile_n=8, interpret=True, U0=z)
+    # 60 iterations land ~1e-3 from the exact optimum
+    np.testing.assert_allclose(np.asarray(z), U_ref, rtol=2e-3, atol=5e-4)
+    z2 = solve_mpc_boxqp_admm(qp, x0s, -0.5, 0.5, U0=z,
+                              **dict(kw, iters=30)).U
     np.testing.assert_allclose(np.asarray(z2), np.asarray(z),
-                               rtol=2 * opt_tol, atol=opt_tol / 2)
+                               rtol=4e-3, atol=1e-3)
 
 
 def test_admm_mpc_pallas_fused_g_matches_two_step(quad):
-    """Fused-g ADMM kernel (g formed in-kernel from x0) must match the
-    two-step kernel and emit the correct g."""
-    from numpower_tpu.kernels.boxqp_admm import (
-        admm_boxqp_pallas, admm_mpc_pallas,
-    )
-
+    """ADMM kernel with c = Minv g formed in the kernel from x0 must match
+    the XLA scan on the materialized g."""
     A, B = quad
     qp = condense(A, B, jnp.eye(12), jnp.eye(4) * 0.1, jnp.eye(12) * 5.0, 10)
     rng = np.random.default_rng(17)
     x0s = jnp.asarray(rng.standard_normal((5, 12)).astype(np.float32))
     g_ref = gradient_offset(qp, x0s)
     rho = jnp.sqrt(qp.lipschitz * qp.mu)
-    z1, y1, g1 = admm_mpc_pallas(qp.H, qp.Sx.T, qp.SuTQ.T, x0s,
-                                 jnp.float32(-0.5), jnp.float32(0.5), rho,
-                                 iters=50, tile_n=8, interpret=True)
-    np.testing.assert_allclose(np.asarray(g1), np.asarray(g_ref),
-                               rtol=1e-4, atol=1e-5)
-    z2, y2 = admm_boxqp_pallas(qp.H, g_ref, jnp.float32(-0.5),
-                               jnp.float32(0.5), rho, iters=50, tile_n=8,
-                               interpret=True)
+    z1 = solve_mpc_boxqp_admm(qp, x0s, -0.5, 0.5, iters=50, method="pallas",
+                              interpret=True, coarse_iters=0).U
+    z2 = solve_boxqp_admm(qp.H, g_ref, -0.5, 0.5, rho=rho, iters=50).U
     np.testing.assert_allclose(np.asarray(z1), np.asarray(z2),
-                               rtol=1e-4, atol=1e-5)
-    np.testing.assert_allclose(np.asarray(y1), np.asarray(y2),
                                rtol=1e-4, atol=1e-5)
 
 
 def test_admm_pallas_bf16_coarse_holds_parity(quad):
     """bf16-coarse x-updates + fp32 tail must still meet the parity bound."""
-    from numpower_tpu.kernels.boxqp_admm import admm_boxqp_pallas
-
     A, B = quad
     qp = condense(A, B, jnp.eye(12), jnp.eye(4) * 0.1, jnp.eye(12) * 5.0, 10)
     rng = np.random.default_rng(14)
     x0s = jnp.asarray(rng.standard_normal((4, 12)).astype(np.float32))
-    g = gradient_offset(qp, x0s)
-    rho = jnp.sqrt(qp.lipschitz * qp.mu)
-    z_fp, _ = admm_boxqp_pallas(qp.H, g, jnp.float32(-0.5), jnp.float32(0.5),
-                                rho, iters=60, tile_n=8, interpret=True)
-    z_bf, _ = admm_boxqp_pallas(qp.H, g, jnp.float32(-0.5), jnp.float32(0.5),
-                                rho, iters=60, coarse_iters=45, tile_n=8,
-                                interpret=True)
+    kw = dict(iters=60, method="pallas", interpret=True)
+    z_fp = solve_mpc_boxqp_admm(qp, x0s, -0.5, 0.5, coarse_iters=0, **kw).U
+    z_bf = solve_mpc_boxqp_admm(qp, x0s, -0.5, 0.5, coarse_iters=45, **kw).U
     np.testing.assert_allclose(np.asarray(z_bf), np.asarray(z_fp),
                                rtol=1e-4, atol=1e-4)
 
@@ -382,64 +351,6 @@ def test_al_ilqr_batched(di):
                        al_iters=4, ilqr_iters=6)
     np.testing.assert_allclose(np.asarray(res.us[0]), np.asarray(r0.us),
                                rtol=1e-4, atol=1e-5)
-
-
-def test_al_ilqr_fused_matches_vmap():
-    """Fused-backward batched AL-iLQR (Pallas interpret mode on CPU) must
-    match the vmapped reference path on the same problems."""
-    from numpower_tpu.models.al_ilqr import _al_ilqr_solve_batched_fused
-
-    Q = jnp.diag(jnp.array([1.0, 0.1]))
-    R = jnp.eye(1) * 0.01
-    QF = jnp.diag(jnp.array([100.0, 10.0]))
-    x0s = jnp.array([[jnp.pi, 0.0], [1.0, 0.5], [-0.7, 0.0], [2.0, -1.0]])
-    kw = dict(al_iters=3, ilqr_iters=5, mu0=1.0, mu_scale=8.0)
-    r_v = al_ilqr_solve_batched(pendulum_step, x0s, Q, R, QF, jnp.zeros(2),
-                                30, -2.0, 2.0, **kw)
-    r_f = _al_ilqr_solve_batched_fused(pendulum_step, x0s, Q, R, QF,
-                                       jnp.zeros(2), 30, -2.0, 2.0,
-                                       interpret=True, **kw)
-    assert r_f.us.shape == r_v.us.shape == (4, 30, 1)
-    assert r_f.costs.shape == r_v.costs.shape == (4, 3)
-    np.testing.assert_allclose(np.asarray(r_f.cost), np.asarray(r_v.cost),
-                               rtol=2e-3, atol=1e-3)
-    np.testing.assert_allclose(np.asarray(r_f.us), np.asarray(r_v.us),
-                               rtol=5e-3, atol=5e-3)
-    assert float(jnp.max(jnp.abs(r_f.us))) <= 2.0 + 1e-6
-
-
-def test_ilqr_backward_fused_luu_diags_parity():
-    """The per-timestep diagonal luu stream must equal adding diag(luu_pen)
-    to a dense luu in the XLA backward pass."""
-    from numpower_tpu.kernels.ilqr_backward import ilqr_backward_fused
-    from numpower_tpu.models.al_ilqr import _backward_pass_al
-
-    rng = np.random.default_rng(11)
-    N, T, n, m = 3, 8, 4, 2
-    As = jnp.asarray(np.eye(n, dtype=np.float32)
-                     + 0.05 * rng.standard_normal((N, T, n, n)).astype(np.float32))
-    Bs = jnp.asarray(0.3 * rng.standard_normal((N, T, n, m)).astype(np.float32))
-    xs = jnp.asarray(rng.standard_normal((N, T + 1, n)).astype(np.float32))
-    us = jnp.asarray(rng.standard_normal((N, T, m)).astype(np.float32))
-    lu_pen = jnp.asarray(rng.standard_normal((N, T, m)).astype(np.float32))
-    luu_pen = jnp.asarray(rng.uniform(0.0, 2.0, (N, T, m)).astype(np.float32))
-    Q = jnp.eye(n); R = jnp.eye(m) * 0.1; QF = jnp.eye(n) * 5.0
-    goal = jnp.zeros(n)
-    reg = 1e-3
-
-    lxs = 2.0 * (xs[:, :T] - goal) @ Q.T
-    lus = 2.0 * us @ R.T + lu_pen
-    lxT = 2.0 * (xs[:, T] - goal) @ QF.T
-    ks_f, Ks_f = ilqr_backward_fused(As, Bs, lxs, lus, 2.0 * Q, 2.0 * R,
-                                     lxT, 2.0 * QF, reg=reg, interpret=True,
-                                     luu_diags=luu_pen)
-    for i in range(N):
-        ks_r, Ks_r = _backward_pass_al(As[i], Bs[i], xs[i], us[i], Q, R, QF,
-                                       goal, reg, lu_pen[i], luu_pen[i])
-        np.testing.assert_allclose(np.asarray(ks_f[i]), np.asarray(ks_r),
-                                   rtol=2e-4, atol=2e-4)
-        np.testing.assert_allclose(np.asarray(Ks_f[i]), np.asarray(Ks_r),
-                                   rtol=2e-4, atol=2e-4)
 
 
 # ---------------------------------------------------------------- MPPI
